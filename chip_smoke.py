@@ -8,23 +8,38 @@
 2. Kernel phase: each kernel against its plain PyTorch twin on the card —
    kernel A (FED cycle) at every main-path shape with its real τ schedule,
    at 1024² and on a ragged 72×128 case (atol 1e-5); kernel B (patch
-   sampler) at K=2048 with S=109 and S=441 (bit-exact) — with median
-   times of both from CUDA events.
+   sampler) at K=2048 with S=109 and S=441 (bit-exact); kernel 4 (Hamming
+   kNN-2) bit-exact on d0, d1 and i0 at Q=2048 × M=1,048,576, on a ragged
+   M=1,000,003 with ~5% invalid rows and on rows duplicated across the
+   kernel's chunk edges — with median times of each kernel and its twin
+   from CUDA events, and each kernel's bound (the least time the card
+   could take for the same work).
 3. Slice phase: bench.py's scene (512² frame from seed 42, a 10,240-row DB
    built by the port from the frame rolled by (7, 13)) through
    Localizer.localize with solve_pose=True: the homography must recover the
    (13, 7) px shift within 1 px, the launch counters must show 15 kernel-A
    and 2 kernel-B launches for the frame, and the same frame run through
    the port on the CPU must agree (homography-inlier Jaccard ≥ 0.95, pose
-   ok flag equal, rotation within 0.1°).
-4. Times the warmed step: median of 10, host clock around a synchronised
-   step, with CUDA events recorded around each step beside it.
+   ok flag equal, rotation within 0.1°). Times the warmed step: median of
+   10, host clock around a synchronised step, with CUDA events recorded
+   around each step beside it.
+4. Big-DB phase: bench_localize_bigdb.py's scene made on the card from a
+   seeded torch.Generator — the 2,048 real rows of the rolled frame, then
+   uniform random filler to 1,048,576 rows, xy uniform over [0, 8192)² —
+   through Localizer.localize: one kNN-2 launch per frame (plus 15
+   kernel-A and 2 kernel-B), (13, 7) within 1 px, matches identical to the
+   kernel="scan" twin on the same features, and the warmed step time.
+5. Pruned phase: the same DB with the first 32,768 rows as the coarse DB
+   and a window capacity of 16,384, through localize_frame_pruned: coarse
+   fix ok, no overflow, (13, 7) within 1 px, and ≥ 0.9 of the big-DB
+   step's homography inliers (by global row id) kept; the warmed step time.
 
 Prints a {"kernels": [...]} JSON line, then as its LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check exits non-zero without that line. Needs a CUDA build of
 PyTorch, nvcc and a GPU; imports nothing of JAX. --profile DIR writes a
-torch.profiler table and Chrome trace of one warmed step to DIR.
+torch.profiler table and Chrome trace of one warmed step of each path
+(slice, big DB, pruned) to DIR, with each step's device-busy time.
 """
 
 from __future__ import annotations
@@ -40,6 +55,19 @@ import numpy as np
 
 SEED = 42
 FED_ATOL = 1e-5
+# Published peaks of one H100 SXM (NVIDIA H100 datasheet) and the
+# POPC issue rate of compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput: 16 results per clock per SM) at the
+# 1.98 GHz boost clock.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+INT8_OPS = 1.979e15
+POPC_PER_CLOCK_PER_SM = 16
+BOOST_HZ = 1.98e9
+BIG_DB_ROWS = 1 << 20
+COARSE_ROWS = 32768
+WINDOW_CAPACITY = 16384
+CONTAINMENT_MIN = 0.9
 
 
 def log(msg):
@@ -115,6 +143,7 @@ def kernel_phase(torch, dev):
 
     log("kernel A (FED cycle) vs plain twin on the card:")
     a_err, a_ms, a_plain_ms = 0.0, 0.0, 0.0
+    a_bytes, a_flops = 0, 0
     for name, h, w, taus, on_path in cases:
         L = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.uniform(0.2, 1, (h, w)).astype(np.float32)).to(dev)
@@ -133,6 +162,10 @@ def kernel_phase(torch, dev):
         if on_path:
             a_ms += ms
             a_plain_ms += pms
+            # L and g read once, the result written once; 17 flops per
+            # pixel per explicit step (fed_cycle.cu).
+            a_bytes += 12 * h * w
+            a_flops += 17 * h * w * len(taus)
 
     log("kernel B (patch sampler) vs plain twin on the card:")
     L, H, W, K = 16, 512, 512, 2048
@@ -147,7 +180,7 @@ def kernel_phase(torch, dev):
     cx_np = np.array([rng.integers(0, w) for w in hw[lvl_np, 1]], np.int32)
     cy_np = np.array([rng.integers(0, h) for h in hw[lvl_np, 0]], np.int32)
     lvl, cx, cy = (torch.from_numpy(a).to(dev) for a in (lvl_np, cx_np, cy_np))
-    b_err, b_ms, b_plain_ms = 0.0, 0.0, 0.0
+    b_err, b_ms, b_plain_ms, b_lib_ms, b_bytes = 0.0, 0.0, 0.0, 0.0, 0
     for S, reach in ((109, 29), (441, 29), (441, 45)):
         iy = torch.from_numpy((cy_np[:, None] + rng.integers(
             -reach, reach + 1, (K, S))).astype(np.int32)).to(dev)
@@ -168,18 +201,128 @@ def kernel_phase(torch, dev):
         check(torch.equal(got, ref), f"kernel B K={K} S={S} ±{reach} bit-exact")
         b_err = max(b_err, err)
         if reach == 29:            # the main path's sample reach
+            # The library yardstick: one index_select of the flat stack at
+            # the twin's clamped linear indices (made outside the timing).
+            hs = level_hw[lvl.long(), 0][:, None].clamp(1, H)
+            ws = level_hw[lvl.long(), 1][:, None].clamp(1, W)
+            lin = ((lvl.long()[:, None] * H + torch.minimum(iy.clamp(min=0),
+                                                           hs - 1)) * W
+                   + torch.minimum(ix.clamp(min=0), ws - 1)).reshape(-1)
+            flat = stack.reshape(L * H * W, 4)
+            lms = cuda_ms(torch, lambda: torch.index_select(flat, 0, lin))
+            log(f"    library index_select of the same samples: {lms:.4f} ms")
             b_ms += ms
             b_plain_ms += pms
+            b_lib_ms += lms
+            # Per sample: iy and ix read, one 8-byte texel read, 16 bytes
+            # written.
+            b_bytes += K * S * 32
+    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / FP32_FLOPS) * 1e3
+    b_bound = b_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"bounds: kernel A {a_bound:.5f} ms ({a_bytes} B, {a_flops} flops "
+        f"over the frame's 15 cycles), kernel B {b_bound:.5f} ms "
+        f"({b_bytes} B at S=109+441)")
     return [
         {"name": "fed_cycle", "route": "cuda",
          "source": "cubesat_apds_tpu_torch/csrc/fed_cycle.cu",
          "replaces": "cubesat_apds_tpu/ops/pallas/diffusion.py:46",
-         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms},
+         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms,
+         "bound_ms": a_bound,
+         "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
+                      >= a_flops / FP32_FLOPS else "operations"),
+         "library_ms": None},
         {"name": "sample_patches", "route": "cuda",
          "source": "cubesat_apds_tpu_torch/csrc/sample_patches.cu",
          "replaces": "cubesat_apds_tpu/ops/pallas/sample_kernel.py:44",
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms},
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms,
+         "bound_ms": b_bound, "bound_by": "bytes", "library_ms": b_lib_ms},
     ]
+
+
+def knn_phase(torch, dev, Q=2048, m_main=BIG_DB_ROWS, m_rag=1_000_003):
+    """Kernel 4 against its twin (knn2_blockwise, 64k-row blocks) on the
+    card, bit-exact, at the big-DB step's shape (Q queries against m_main
+    rows) and on two edge cases."""
+    from cubesat_apds_tpu_torch.ops import match as tmatch
+    from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    block = 65536
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n, 61), generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    q = rand_bytes(Q)
+    # Near hits for half the queries (a few bits flipped), so d0 spans the
+    # range real matches give.
+    def with_near_hits(db):
+        rows = torch.randint(0, db.shape[0], (Q // 2,), generator=gen,
+                             device=dev)
+        noise = rand_bytes(Q // 2) & rand_bytes(Q // 2) & rand_bytes(Q // 2)
+        db[rows] = q[:Q // 2] ^ noise
+        return db
+
+    db_main = with_near_hits(rand_bytes(m_main))
+    db_rag = with_near_hits(rand_bytes(m_rag))
+    valid_rag = torch.rand(m_rag, generator=gen, device=dev) >= 0.05
+    db_tie = rand_bytes(m_main)
+    _, _, chunk = tmk.split_plan(Q, m_main, sms)
+    edges = [chunk, 2 * chunk, 7 * chunk, block, 3 * block, m_main - 1]
+    for j, e in enumerate(edges):
+        db_tie[[e - 1, e]] = q[j]            # an exact tie across the edge
+    db_tie[[100, 5 * chunk + 3, m_main - 5]] = q[len(edges)]
+    cases = [(f"Q={Q} M={m_main}", db_main, None),
+             (f"ragged M={m_rag}, ~5% invalid", db_rag, valid_rag),
+             ("ties across chunk/block edges", db_tie, None)]
+
+    log(f"kernel 4 (Hamming kNN-2) vs plain twin on the card "
+        f"(chunk {chunk} rows, {sms} SMs):")
+    qw = tmk.pack_words(q)
+    qb = tmatch.unpack_bits(q)
+    err, ms, pms = 0.0, None, None
+    for name, db, valid in cases:
+        layout = tmk.layout_db_blocks(tmk.pack_words(db), valid)
+        got = tmk.knn2_hamming_cuda(qw, *layout)
+        ref = tmatch.knn2_blockwise(qb, db, block, valid)
+        torch.cuda.synchronize()
+        exact = [torch.equal(g, r) for g, r in zip(got, ref)]
+        e = max(float((got[0] - ref[0]).abs().max()),
+                float((got[1] - ref[1]).abs().max()))
+        log(f"  {name}: d0/d1/i0 bit_exact={exact} max_abs_err={e:.3e} "
+            f"d0 range [{float(got[0].min()):.0f}, "
+            f"{float(got[0][got[0] < 1e30].max()):.0f}]")
+        check(all(exact), f"kernel 4 {name} bit-exact on d0, d1, i0")
+        err = max(err, e)
+        if valid is not None:
+            ok = valid[got[2].long()] | (got[0] > 1e30)
+            check(bool(ok.all()), "kernel 4 winners are valid rows")
+        if db is db_tie:
+            i0 = got[2][:len(edges) + 1].tolist()
+            check(i0 == [e - 1 for e in edges] + [100]
+                  and bool((got[1][:len(edges) + 1] == 0).all()),
+                  "kernel 4 ties: lowest index wins, the duplicate is d1")
+        if db is db_main:
+            ms = cuda_ms(torch, lambda: tmk.knn2_hamming_cuda(qw, *layout),
+                         reps=5, rounds=5)
+            pms = cuda_ms(torch, lambda: tmatch.knn2_blockwise(
+                qb, db, block, valid), reps=1, rounds=3)
+    ops = 2 * Q * m_main * 512           # as an int8 product on unpacked bits
+    nbytes = m_main * (64 + 4) + Q * 64 + Q * 12
+    bound = max(ops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    popc_bound = (Q * m_main * 16
+                  / (POPC_PER_CLOCK_PER_SM * sms * BOOST_HZ)) * 1e3
+    log(f"  Q={Q} x M={m_main}: kernel={ms:.4f} ms plain={pms:.4f} ms; "
+        f"bound {bound:.4f} ms (int8 tensor-core ops; bytes alone "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), AND+POPC form bound "
+        f"{popc_bound:.4f} ms")
+    return {"name": "knn2_hamming", "route": "cuda",
+            "source": "cubesat_apds_tpu_torch/csrc/knn2_hamming.cu",
+            "replaces": "cubesat_apds_tpu/ops/pallas/match_kernel.py:130",
+            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bound, "bound_by": "operations", "library_ms": None,
+            "popc_bound_ms": popc_bound}
 
 
 def inlier_pairs(res):
@@ -324,31 +467,237 @@ def slice_phase(torch, dev, profile_dir):
         f"= {1.0 / med:.2f} frames/s")
 
     if profile_dir:
-        profile_step(torch, gpu, frame_t, profile_dir)
+        profile_step(torch, lambda: gpu.localize(frame_t), profile_dir,
+                     "slice")
     return launches, med
 
 
-def profile_step(torch, loc, frame_t, out_dir):
+def _reset_launches():
+    from cubesat_apds_tpu_torch.ops.kernels import (
+        diffusion, match_kernel, sample_kernel)
+    diffusion.fed_cycle_cuda.launches = 0
+    sample_kernel.sample_patches_cuda.launches = 0
+    match_kernel.knn2_hamming_cuda.launches = 0
+
+
+def _read_launches():
+    from cubesat_apds_tpu_torch.ops.kernels import (
+        diffusion, match_kernel, sample_kernel)
+    return {"fed_cycle": diffusion.fed_cycle_cuda.launches,
+            "sample_patches": sample_kernel.sample_patches_cuda.launches,
+            "knn2_hamming": match_kernel.knn2_hamming_cuda.launches}
+
+
+def timed_steps(torch, step, label):
+    """Median of 10 warmed steps: host clock around a synchronised step,
+    and CUDA events around each."""
+    step_s, event_ms = [], []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        event_ms.append(a.elapsed_time(b))
+    med = float(np.median(step_s))
+    log(f"{label} warmed step: median {med * 1e3:.2f} ms host clock over 10 "
+        f"(min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}); "
+        f"CUDA events median {float(np.median(event_ms)):.2f} ms "
+        f"= {1.0 / med:.2f} frames/s")
+    return med
+
+
+def serving_config():
+    from cubesat_apds_tpu_torch.core.config import (
+        AkazeConfig, MatchConfig, PipelineConfig, PnPConfig, RansacConfig)
+    return PipelineConfig(akaze=AkazeConfig(capacity=2048),
+                          match=MatchConfig(ratio=0.75),
+                          ransac=RansacConfig(num_hypotheses=256),
+                          pnp=PnPConfig(num_hypotheses=64))
+
+
+def inlier_ids(res, sel=None):
+    """Global DB row ids of a step's homography inliers among its matches."""
+    m = (res.matches.valid & res.homography.inliers).cpu().numpy()
+    ids = res.matches.train_idx.cpu().numpy()[m]
+    if sel is not None:
+        ids = sel.cpu().numpy()[ids]
+    return set(ids.tolist())
+
+
+def bigdb_phase(torch, dev, profile_dir):
+    """bench_localize_bigdb.py's scene, made on the card, through
+    Localizer.localize (the kNN-2 kernel with the DB's layout)."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        DeviceDb, Localizer, localize_from_features)
+
+    config = serving_config()
+    frame = make_frame(np.random.default_rng(SEED))
+    frame_t = torch.from_numpy(frame)
+    t0 = time.perf_counter()
+    feats = detect_and_compute(
+        torch.from_numpy(np.roll(frame, (7, 13), axis=(0, 1))).to(dev),
+        config.akaze)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    m, n_real = BIG_DB_ROWS, feats.descriptors.shape[0]
+    desc = torch.randint(0, 256, (m, 61), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    xy = torch.rand((m, 2), generator=gen, device=dev) * 8192.0
+    valid = torch.ones(m, dtype=torch.bool, device=dev)
+    desc[:n_real] = feats.descriptors
+    xy[:n_real] = feats.keypoints.xy
+    valid[:n_real] = feats.keypoints.valid
+    obj = torch.cat([xy, torch.zeros((m, 1), device=dev)], dim=1)
+    db = DeviceDb(descriptors=desc, xy=xy, valid=valid, obj_points=obj,
+                  has_world=True)
+    camera = CameraModel.ideal(500.0, 500.0, 256.0, 256.0)
+    loc = Localizer(db, camera, config, device=dev)
+    torch.cuda.synchronize()
+    log(f"big DB: {m} rows ({n_real} real, "
+        f"{int(feats.keypoints.valid.sum())} valid) built with its kNN-2 "
+        f"layout in {time.perf_counter() - t0:.2f} s")
+    check(loc.db.match_layout is not None, "Localizer made the kNN-2 layout")
+
+    loc.localize(frame_t)                                   # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    res = loc.localize(frame_t)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    log(f"big-DB launches in one frame: {launches}")
+    check(launches == {"fed_cycle": 15, "sample_patches": 2,
+                       "knn2_hamming": 1},
+          "1 kNN-2, 15 kernel-A and 2 kernel-B launches per big-DB frame")
+    H = res.homography.H.cpu().numpy()
+    log(f"big DB: keypoints={int(res.num_keypoints)} "
+        f"matches={int(res.num_matches)} "
+        f"H inliers={int(res.homography.num_inliers)} "
+        f"H=[{H[0, 2]:.4f}, {H[1, 2]:.4f}] pose ok={bool(res.pose.ok)}")
+    check(bool(res.homography.ok) and bool(np.isfinite(H).all()),
+          "big-DB homography ok and finite")
+    check(abs(H[0, 2] - 13.0) < 1.0 and abs(H[1, 2] - 7.0) < 1.0,
+          f"big-DB H recovers (13, 7) (got {H[0, 2]:.3f}, {H[1, 2]:.3f})")
+
+    # The same step's back half with kernel="scan" (the twin) on the same
+    # features: the matches must be identical.
+    q_feats = detect_and_compute(frame_t.to(dev), config.akaze)
+    res_k = localize_from_features(q_feats, loc.db, loc.camera, config, True)
+    scan_cfg = dataclasses.replace(
+        config, match=dataclasses.replace(config.match, kernel="scan"))
+    res_s = localize_from_features(
+        q_feats, dataclasses.replace(loc.db, match_layout=None), loc.camera,
+        scan_cfg, True)
+    torch.cuda.synchronize()
+    same = {f: torch.equal(getattr(res_k.matches, f), getattr(res_s.matches, f))
+            for f in ("train_idx", "valid", "distance")}
+    log(f"big DB kernel vs scan matches identical: {same} "
+        f"({int(res_k.num_matches)} matches)")
+    check(all(same.values()), "big-DB matches identical to kernel=\"scan\"")
+
+    med = timed_steps(torch, lambda: loc.localize(frame_t), "big-DB")
+    if profile_dir:
+        profile_step(torch, lambda: loc.localize(frame_t), profile_dir,
+                     "bigdb")
+    return launches, med, loc, res, frame_t
+
+
+def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
+    """The big DB pruned: the first 32,768 rows as the coarse DB, a window
+    capacity of 16,384, through localize_frame_pruned."""
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        DeviceDb, localize_frame_pruned, make_pruned_db)
+
+    config = serving_config()
+    db = loc.db
+    n = COARSE_ROWS
+    coarse = DeviceDb(descriptors=db.descriptors[:n], xy=db.xy[:n],
+                      valid=db.valid[:n], obj_points=db.obj_points[:n],
+                      has_world=True)
+    t0 = time.perf_counter()
+    pdb = make_pruned_db(db, coarse, WINDOW_CAPACITY)
+    torch.cuda.synchronize()
+    log(f"pruned DB (cell sort of {db.descriptors.shape[0]} rows) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def step():
+        return localize_frame_pruned(frame_t, pdb, loc.camera, config,
+                                     solve_pose=True)
+
+    step()                                                  # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    pr = step()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    log(f"pruned launches in one frame: {launches} (the coarse and window "
+        f"DBs are below db_block: dense matches)")
+    check(launches == {"fed_cycle": 15, "sample_patches": 2,
+                       "knn2_hamming": 0},
+          "15 kernel-A and 2 kernel-B launches per pruned frame")
+    H = pr.result.homography.H.cpu().numpy()
+    p_ids = inlier_ids(pr.result, pr.sel)
+    f_ids = inlier_ids(full_res)
+    jac = len(p_ids & f_ids) / max(len(p_ids | f_ids), 1)
+    containment = len(p_ids & f_ids) / max(len(f_ids), 1)
+    log(f"pruned: coarse_ok={bool(pr.coarse_ok)} n_window={int(pr.n_window)} "
+        f"overflow={bool(pr.overflow)} matches={int(pr.result.num_matches)} "
+        f"H inliers={int(pr.result.homography.num_inliers)} "
+        f"H=[{H[0, 2]:.4f}, {H[1, 2]:.4f}] "
+        f"pose ok={bool(pr.result.pose.ok)}; vs the big-DB step: inlier "
+        f"Jaccard={jac:.4f} full-inlier containment={containment:.4f} "
+        f"({len(p_ids)} pruned, {len(f_ids)} full inliers)")
+    check(bool(pr.coarse_ok), "pruned coarse fix ok")
+    check(not bool(pr.overflow), "pruned window within its capacity")
+    check(bool(pr.result.homography.ok) and abs(H[0, 2] - 13.0) < 1.0
+          and abs(H[1, 2] - 7.0) < 1.0,
+          f"pruned H recovers (13, 7) (got {H[0, 2]:.3f}, {H[1, 2]:.3f})")
+    check(containment >= CONTAINMENT_MIN,
+          f"pruned keeps >= {CONTAINMENT_MIN} of the big-DB step's inliers")
+    med = timed_steps(torch, step, "pruned")
+    if profile_dir:
+        profile_step(torch, step, profile_dir, "pruned")
+    return launches, med
+
+
+def profile_step(torch, step, out_dir, name):
+    """torch.profiler over one warmed step: a table by kernel and a Chrome
+    trace in out_dir, and the step's device-busy time and kernel count."""
     import os
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        loc.localize(frame_t)
+        step()
         torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    with open(os.path.join(out_dir, "step_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(table)
-    prof.export_chrome_trace(os.path.join(out_dir, "step_trace.json"))
-    log(f"profile of one warmed step written to {out_dir}")
+    prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    log(f"profile of one warmed {name} step written to {out_dir}: "
+        f"{len(kernels)} device kernels, {busy_ms:.3f} ms device-busy of "
+        f"{wall_ms:.2f} ms under the profiler "
+        f"(idle share {1.0 - busy_ms / wall_ms:.4f})")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="write a torch.profiler table + trace of one step")
+                    help="write a torch.profiler table + trace of one "
+                    "step of each path")
     args = ap.parse_args(argv)
 
     import torch
@@ -381,11 +730,18 @@ def main(argv=None):
         if lib.build_log:
             print(lib.build_log, file=sys.stderr)
 
-        kernels = kernel_phase(torch, dev)
+        kernels = kernel_phase(torch, dev) + [knn_phase(torch, dev)]
         launches, step_s = slice_phase(torch, dev, args.profile)
+        big_launches, big_s, loc, big_res, frame_t = bigdb_phase(
+            torch, dev, args.profile)
+        _, pruned_s = pruned_phase(torch, dev, loc, big_res, frame_t,
+                                   args.profile)
+        launches = dict(launches, knn2_hamming=big_launches["knn2_hamming"])
         for k in kernels:
             k["launches"] = launches[k["name"]]
-        log(f"card: {card} — slice {1.0 / step_s:.2f} frames/s")
+        log(f"card: {card} — slice {1.0 / step_s:.2f} frames/s, big DB "
+            f"{1.0 / big_s:.2f} frames/s, pruned {1.0 / pruned_s:.2f} "
+            f"frames/s")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

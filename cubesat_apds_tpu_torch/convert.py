@@ -4,9 +4,10 @@ The JAX package's containers (DeviceDb, CameraModel, Features, Keypoints)
 and the port's have the same fields. These functions read any object
 with those attribute names — a JAX container, a port container or a
 plain namespace — with ``numpy.asarray`` (no jax import needed), and
-build the port's containers from numpy on a chosen device; `to_numpy`
-goes back to a dict of numpy arrays that the JAX containers accept as
-keyword arguments.
+build the port's containers from numpy on a chosen device (the card,
+``"cuda"``, unless the caller names another; a CPU test passes
+``device="cpu"``); `to_numpy` goes back to a dict of numpy arrays that the
+JAX containers accept as keyword arguments.
 """
 
 from __future__ import annotations
@@ -32,22 +33,22 @@ def _tensor(src, name, dtype, device):
     return torch.from_numpy(np.array(_get(src, name), dtype=dtype)).to(device)
 
 
-def keypoints_from(src, device=None) -> Keypoints:
+def keypoints_from(src, device="cuda") -> Keypoints:
     return Keypoints(**{k: _tensor(src, k, dt, device)
                         for k, dt in _KP_DTYPES.items()})
 
 
-def features_from(src, device=None) -> Features:
+def features_from(src, device="cuda") -> Features:
     return Features(keypoints=keypoints_from(_get(src, "keypoints"), device),
                     descriptors=_tensor(src, "descriptors", np.uint8, device))
 
 
-def camera_from(src, device=None) -> CameraModel:
+def camera_from(src, device="cuda") -> CameraModel:
     return CameraModel(K=_tensor(src, "K", np.float32, device),
                        dist=_tensor(src, "dist", np.float32, device))
 
 
-def device_db_from(src, device=None) -> DeviceDb:
+def device_db_from(src, device="cuda") -> DeviceDb:
     """DeviceDb from an object or dict with descriptors [M, 61] uint8,
     xy [M, 2], valid [M], obj_points [M, 3], has_world, world_frame."""
     return DeviceDb(

@@ -150,8 +150,10 @@ class MatchConfig:
     crosscheck: bool = False
     db_block: int = 65536           # descriptors per device tile for big DBs
     kernel: str = "auto"            # big-DB path: "auto" | "fused" | "scan"
-    #   auto = fused Pallas kNN-2 on TPU (bit-identical, ~5× the scan),
-    #   XLA scan elsewhere; see ops/pallas/match_kernel.py.
+    #   auto / fused = ops/kernels/match_kernel.knn2_fused: the CUDA kNN-2
+    #   kernel (csrc/knn2_hamming.cu) on CUDA tensors, its plain twin
+    #   (ops/match.knn2_blockwise) on CPU tensors; scan = the plain twin on
+    #   either device. All three are bit-identical.
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,10 +14,12 @@ import torch
 
 
 def to_device(obj, device):
-    """Copy a tensor dataclass (nested dataclasses included) to `device`.
-    Non-tensor fields are kept as they are."""
+    """Copy a tensor dataclass (nested dataclasses and tuples of tensors
+    included) to `device`. Non-tensor fields are kept as they are."""
     if isinstance(obj, torch.Tensor):
         return obj.to(device)
+    if isinstance(obj, tuple):
+        return tuple(to_device(x, device) for x in obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
             f.name: to_device(getattr(obj, f.name), device)

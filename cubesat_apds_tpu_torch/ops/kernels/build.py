@@ -34,6 +34,9 @@ _SIGNATURES = {
     # stack, level_hw, lvl, cx, cy, iy, ix, out, K, S, L, Hmax, Wmax, stream
     "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _P),
+    # q_words, db_words, vpop, partial, d0, d1, i0, Q, M, n_split, chunk,
+    # stream
+    "apds_knn2_hamming": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -10,6 +10,10 @@ sum is an integer ≤ 512, exact in float32 (and in TF32 accumulation), so
 the distances are bit-exact. kNN-2 + Lowe ratio semantics, the 3.0e38
 invalid sentinel and the lowest-index tie-break follow the JAX package
 bit for bit.
+
+A DB of more than `block` rows takes the big-DB branch of `knn_match`:
+the CUDA kNN-2 kernel (ops/kernels/match_kernel.py) on the card, and
+`knn2_blockwise`, its plain twin, on the CPU or when `kernel="scan"`.
 """
 
 from __future__ import annotations
@@ -108,21 +112,151 @@ def _ratio_matches(d0, d1, i0, ratio: float) -> Matches:
     )
 
 
+def knn2_blockwise(q_bits, db_bits, block: int, db_valid=None):
+    """Streaming top-2 merge over DB blocks: the plain twin of the kNN-2
+    kernel (a Python loop in place of the JAX package's lax.scan).
+
+    db_bits: [M, 512] unpacked int8 bits, OR [M, ≤64] packed uint8 rows,
+    unpacked one block at a time. If M is not a multiple of `block` the
+    DB is padded here with invalid rows. Only O(Q) state is kept between
+    blocks; each block is one dense product and `_top2_with_index`.
+    """
+    m = db_bits.shape[0]
+    # Packed or unpacked is told by ROW WIDTH, not dtype alone: unpacked
+    # 0/1 bits passed as uint8 must not be unpacked a second time.
+    if db_bits.shape[1] <= DESC_BITS_PADDED // 8:
+        packed = True
+    elif db_bits.shape[1] == DESC_BITS_PADDED:
+        packed = db_bits.dtype == torch.uint8
+        if packed:
+            raise ValueError(
+                "ambiguous db_bits: width 512 uint8 — pass unpacked bits "
+                "as int8 {0,1} or packed rows as uint8 [M, 61]")
+    else:
+        raise ValueError(f"bad db_bits width {db_bits.shape[1]}: expected "
+                         f"packed ≤{DESC_BITS_PADDED // 8} or unpacked "
+                         f"{DESC_BITS_PADDED}")
+    dev = q_bits.device
+    if db_valid is None:
+        db_valid = torch.ones(m, dtype=torch.bool, device=dev)
+    q = q_bits.shape[0]
+    d0 = torch.full((q,), INVALID_DIST, dtype=torch.float32, device=dev)
+    d1 = torch.full((q,), INVALID_DIST, dtype=torch.float32, device=dev)
+    i0 = torch.zeros(q, dtype=torch.int32, device=dev)
+    for start in range(0, m, block):
+        blk = db_bits[start:start + block]
+        vblk = db_valid[start:start + block]
+        pad = block - blk.shape[0]
+        if pad:                                  # ragged tail: invalid rows
+            blk = torch.cat([blk, blk.new_zeros((pad, blk.shape[1]))])
+            vblk = torch.cat([vblk, vblk.new_zeros(pad)])
+        if packed:
+            blk = unpack_bits(blk)
+        bd0, bd1, bi0 = _top2_with_index(hamming_matrix(q_bits, blk), vblk)
+        bi0 = bi0 + start
+        # Merge {(d0, i0), d1} with {(bd0, bi0), bd1}: the new best is the
+        # smaller (lower index on a tie), the new second-best the least of
+        # the other three.
+        take_new = (bd0 < d0) | ((bd0 == d0) & (bi0 < i0))
+        loser = torch.where(take_new, d0, bd0)
+        d0 = torch.where(take_new, bd0, d0)
+        i0 = torch.where(take_new, bi0, i0)
+        d1 = torch.minimum(torch.minimum(d1, bd1), loser)
+    return d0, d1, i0
+
+
 def knn_match(q_desc_packed, db_desc_packed, ratio: float = 0.3,
-              q_valid=None, db_valid=None,
-              block: int | None = None) -> Matches:
+              q_valid=None, db_valid=None, block: int | None = None,
+              kernel: str = "auto", db_layout=None) -> Matches:
     """k=2 kNN + Lowe ratio on packed uint8 descriptors → Matches of size Q.
 
-    Only the dense branch (the whole DB in one product) is ported; a DB
-    of more than `block` rows raises NotImplementedError.
+    A DB of at most `block` rows (or any DB when `block` is None) is one
+    dense product. A larger one takes the big-DB branch: `kernel` "auto"
+    or "fused" runs `knn2_fused` (the CUDA kernel on CUDA tensors, its
+    plain twin on CPU tensors); "scan" runs the twin `knn2_blockwise` on
+    either device. All are bit-identical. `db_layout` is an optional
+    `layout_db_blocks` result for this (DB, db_valid), made once per DB
+    by serving paths; the scan ignores it. In this branch `q_valid` masks
+    d0 only, as in the JAX package.
     """
     if block is not None and db_desc_packed.shape[0] > block:
-        raise NotImplementedError(
-            f"knn_match: the big-DB branch ({db_desc_packed.shape[0]} rows > "
-            f"db_block {block}) is not ported yet")
-    d0, d1, i0 = knn2(unpack_bits(q_desc_packed), unpack_bits(db_desc_packed),
-                      q_valid, db_valid)
+        if kernel in ("auto", "fused"):
+            from cubesat_apds_tpu_torch.ops.kernels.match_kernel import (
+                knn2_fused, pack_words)
+            q_words = pack_words(q_desc_packed)
+            if db_layout is not None:
+                d0, d1, i0 = knn2_fused(q_words, db_layout, block=block)
+            else:
+                d0, d1, i0 = knn2_fused(q_words, pack_words(db_desc_packed),
+                                        db_valid, block=block)
+        elif kernel == "scan":
+            d0, d1, i0 = knn2_blockwise(unpack_bits(q_desc_packed),
+                                        db_desc_packed, block, db_valid)
+        else:
+            raise ValueError(f"knn_match: unknown kernel {kernel!r}")
+        if q_valid is not None:
+            d0 = torch.where(q_valid, d0, INVALID_DIST)
+    else:
+        d0, d1, i0 = knn2(unpack_bits(q_desc_packed),
+                          unpack_bits(db_desc_packed), q_valid, db_valid)
     return _ratio_matches(d0, d1, i0, ratio)
+
+
+def knn_match_bits(q_bits, db_bits, ratio: float = 0.3,
+                   q_valid=None, db_valid=None,
+                   q_block: int | None = None) -> Matches:
+    """knn_match on unpacked bit arrays, optionally in chunks of `q_block`
+    queries (bounds the [q_block, M] distance matrix)."""
+    q = q_bits.shape[0]
+    if q_block is None or q <= q_block:
+        d0, d1, i0 = knn2(q_bits, db_bits, q_valid, db_valid)
+    else:
+        parts = [knn2(q_bits[s:s + q_block], db_bits,
+                      None if q_valid is None else q_valid[s:s + q_block],
+                      db_valid)
+                 for s in range(0, q, q_block)]
+        d0, d1, i0 = (torch.cat([p[j] for p in parts]) for j in range(3))
+    return _ratio_matches(d0, d1, i0, ratio)
+
+
+def knn_matches_k(q_desc_packed, db_desc_packed, k: int,
+                  q_valid=None, db_valid=None):
+    """General k-nearest-neighbour search: (distances [Q, k] float32,
+    indices [Q, k] int32), ordered by (distance, index). Entries past the
+    number of valid DB rows carry the invalid sentinel and index 0."""
+    dist = hamming_matrix(unpack_bits(q_desc_packed),
+                          unpack_bits(db_desc_packed))
+    m = dist.shape[1]
+    if 512 * (m + 1) >= _INVALID_KEY:
+        raise ValueError(f"DB of {m} rows too large for int32 keys")
+    idx = torch.arange(m, dtype=torch.int32, device=dist.device)
+    key = dist * m + idx[None, :]
+    if db_valid is not None:
+        key = torch.where(db_valid[None, :], key, _INVALID_KEY)
+    top_key = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    invalid = top_key == _INVALID_KEY
+    d = torch.where(invalid, INVALID_DIST,
+                    torch.div(top_key, m, rounding_mode="floor")
+                    .to(torch.float32))
+    i = torch.where(invalid, 0, top_key % m).to(torch.int32)
+    if q_valid is not None:
+        d = torch.where(q_valid[:, None], d, INVALID_DIST)
+    return d, i
+
+
+def crosscheck_match(q_desc_packed, db_desc_packed,
+                     q_valid=None, db_valid=None) -> Matches:
+    """Mutual nearest neighbours (BFMatcher NORM_HAMMING with crosscheck)."""
+    dist = hamming_matrix(unpack_bits(q_desc_packed),
+                          unpack_bits(db_desc_packed))
+    d0, _, i0 = _top2_with_index(dist, db_valid)
+    _, _, i0_r = _top2_with_index(dist.T, q_valid)     # each train's best query
+    q = dist.shape[0]
+    arange_q = torch.arange(q, dtype=torch.int32, device=dist.device)
+    ok = (i0_r[i0.long()] == arange_q) & (d0 < INVALID_DIST)
+    if q_valid is not None:
+        ok = ok & q_valid
+    return Matches(query_idx=arange_q, train_idx=i0, distance=d0, valid=ok)
 
 
 def matched_points(kp_query_xy, kp_train_xy, matches: Matches):

@@ -4,7 +4,13 @@ pipelines/localize.py, the main path).
 AKAZE on the frame, kNN-2 ratio match against the DB descriptors, RANSAC
 homography, and optionally PnP-RANSAC against the DB's world points.
 Everything runs on the device of the DB's tensors; `Localizer` keeps one
-DB resident on its device for repeated frames.
+DB resident on its device (the card unless the caller names another) for
+repeated frames. A DB past `MatchConfig.db_block` rows matches through the
+kNN-2 kernel, with its layout made once per DB.
+
+The pruned serving path (`make_pruned_db`, `localize_frame_pruned`) keeps
+the DB sorted by spatial cell and matches each frame against the rows
+inside a window found from a coarse DB, with no O(M) work per frame.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from cubesat_apds_tpu_torch.core.config import PipelineConfig
+from cubesat_apds_tpu_torch.core.config import MatchConfig, PipelineConfig
 from cubesat_apds_tpu_torch.core.types import (
     CameraModel, Correspondences, Features, HomographyResult, Keypoints,
     Matches, PoseSolution, to_device)
@@ -31,7 +37,10 @@ class DeviceDb:
     """Device-resident descriptor DB block (one LoD).
 
     `world_frame` tags obj_points: "ecef" enables PnP's above-terrain
-    gate (up ≈ centroid direction), "local" disables it.
+    gate (up ≈ centroid direction), "local" disables it. `match_layout`
+    optionally holds the kNN-2 kernel's layout of this DB
+    (ops/kernels/match_kernel.layout_db_blocks), so repeated frames skip
+    the repack; `Localizer` fills it for a big DB on the card.
     """
 
     descriptors: torch.Tensor   # [M, 61] uint8
@@ -39,11 +48,25 @@ class DeviceDb:
     valid: torch.Tensor         # [M] bool
     obj_points: torch.Tensor    # [M, 3] float32 (zeros if no elevation)
     has_world: bool = False
+    match_layout: Optional[tuple] = None
     world_frame: str = "local"
 
     @property
     def device(self) -> torch.device:
         return self.descriptors.device
+
+
+def _maybe_match_layout(desc, valid, match_config: MatchConfig):
+    """The kNN-2 kernel's layout of a DB when the big-DB kernel path would
+    be taken for it (CUDA tensors, more than db_block rows, kernel not
+    forced to the scan); None otherwise."""
+    if (match_config.kernel == "scan"
+            or desc.shape[0] <= match_config.db_block
+            or desc.device.type != "cuda"):
+        return None
+    from cubesat_apds_tpu_torch.ops.kernels.match_kernel import (
+        layout_db_blocks, pack_words)
+    return layout_db_blocks(pack_words(desc), valid)
 
 
 @dataclasses.dataclass
@@ -88,7 +111,8 @@ def localize_from_features(feats: Features, db: DeviceDb,
     kp = feats.keypoints
     matches = knn_match(feats.descriptors, db.descriptors,
                         ratio=config.match.ratio, q_valid=kp.valid,
-                        db_valid=db.valid, block=config.match.db_block)
+                        db_valid=db.valid, block=config.match.db_block,
+                        kernel=config.match.kernel, db_layout=db.match_layout)
     q_pts, t_pts = matched_points(kp.xy, db.xy, matches)
     homog = find_homography_ransac(q_pts, t_pts, valid=matches.valid,
                                    config=config.ransac)
@@ -116,15 +140,21 @@ def localize_frame(frame, db: DeviceDb, camera: CameraModel,
 class Localizer:
     """Serving-path localizer with a DB kept resident on one device.
 
-    The DB (built from arrays, e.g. with convert.device_db_from_numpy)
-    and the camera move to `device` once; every `localize` call then runs
-    just the pipeline.
+    The DB (built from arrays, e.g. with convert.device_db_from) and the
+    camera move to `device` once — the card ("cuda") unless the caller
+    names another; without a card that raises — and a big DB's kNN-2
+    layout is made there once. Every `localize` call then runs just the
+    pipeline.
     """
 
     def __init__(self, db: DeviceDb, camera: CameraModel,
                  config: PipelineConfig = PipelineConfig(), device=None):
-        self.device = torch.device(device) if device is not None else db.device
-        self.db = to_device(db, self.device)
+        self.device = torch.device("cuda" if device is None else device)
+        db = to_device(db, self.device)
+        if db.match_layout is None:
+            db = dataclasses.replace(db, match_layout=_maybe_match_layout(
+                db.descriptors, db.valid, config.match))
+        self.db = db
         self.camera = to_device(camera, self.device)
         self.config = config
 
@@ -134,3 +164,273 @@ class Localizer:
             solve_pose = self.db.has_world
         return localize_frame(frame, self.db, self.camera, self.config,
                               solve_pose)
+
+
+# ---- spatially pruned serving ---------------------------------------------
+#
+# The full DB is sorted by spatial cell once (a _GRID × _GRID grid over the
+# reference frame, row-major), so a frame's window is a few contiguous runs
+# of rows: per intersected cell row, one [start, end) range from the CSR
+# offsets. The runs are compacted into a [window_capacity] position vector
+# by index arithmetic, then ONE gather of packed int32 rows (descriptor | xy
+# | obj) brings the window's rows together, and the exact bbox test masks
+# them. No O(M) work per frame.
+
+_ROW_WORDS = 22  # 16 desc (61 B → 64 B) + 2 xy + 3 obj + 1 pad, int32
+_GRID = 64       # cells per axis of the spatial grid
+
+
+def _pack_prune_rows(desc, xy, obj):
+    """[M, 22] int32 row table: one gather brings a row's descriptor
+    bytes, reference-frame xy and object point together."""
+    m = desc.shape[0]
+    desc = desc.to(torch.uint8)
+    desc_w = torch.cat([desc, desc.new_zeros((m, 3))], 1).view(torch.int32)
+    xy_w = xy.to(torch.float32).contiguous().view(torch.int32)
+    obj_w = obj.to(torch.float32).contiguous().view(torch.int32)
+    pad = torch.zeros((m, _ROW_WORDS - 21), dtype=torch.int32,
+                      device=desc.device)
+    return torch.cat([desc_w, xy_w, obj_w, pad], dim=1)
+
+
+def _unpack_prune_rows(rows):
+    desc = rows[:, :16].contiguous().view(torch.uint8)[:, :61]
+    xy = rows[:, 16:18].contiguous().view(torch.float32)
+    obj = rows[:, 18:21].contiguous().view(torch.float32)
+    return desc, xy, obj
+
+
+@dataclasses.dataclass
+class PrunedDeviceDb:
+    """Serving DB with spatial pruning state.
+
+    rows:   [M, 22] int32 packed (desc | xy | obj), SORTED by spatial cell
+            (row-major over the _GRID × _GRID grid)
+    order:  [M] int32 — global row id of each sorted row
+    starts: [_GRID² + 1] int32 CSR offsets: the sorted rows of cell c are
+            [starts[c], starts[c + 1])
+    grid:   [4] float32 (x0, y0, inv_cell_w, inv_cell_h)
+    coarse: small DeviceDb (a coarser LoD, or any subsample covering the
+            reference frame) for the first-stage fix
+    """
+
+    rows: torch.Tensor
+    order: torch.Tensor
+    starts: torch.Tensor
+    grid: torch.Tensor
+    coarse: DeviceDb
+    window_capacity: int = 16384
+    has_world: bool = False
+    world_frame: str = "local"
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+
+def _grid_cell(v, origin, inv_cell):
+    """Cell index of coordinates v along one axis, clipped to [0, _GRID).
+    The float clamp first makes the int32 cast well defined for any input
+    (a cast truncates toward zero; NaN lands in cell 0)."""
+    f = ((v - origin) * inv_cell).clamp(-1.0, float(_GRID))
+    return torch.nan_to_num(f, nan=0.0).to(torch.int32).clamp(0, _GRID - 1)
+
+
+def _build_prune_index(desc, xy, obj, valid):
+    """Sort rows by spatial cell; invalid rows sort to a sentinel cell past
+    the grid (their range is never selected). One-time build cost."""
+    x, y = xy[:, 0], xy[:, 1]
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=xy.device)
+
+    def masked(v, fill):                    # nanmin/nanmax over valid rows
+        return torch.where(valid & ~torch.isnan(v), v, fill)
+
+    x0 = masked(x, inf).amin()
+    y0 = masked(y, inf).amin()
+    x1 = masked(x, -inf).amax()
+    y1 = masked(y, -inf).amax()
+    x0 = torch.where(torch.isfinite(x0), x0, 0.0)
+    y0 = torch.where(torch.isfinite(y0), y0, 0.0)
+    inv_cw = _GRID / (torch.where(torch.isfinite(x1), x1, 1.0) - x0).clamp(
+        min=1e-6)
+    inv_ch = _GRID / (torch.where(torch.isfinite(y1), y1, 1.0) - y0).clamp(
+        min=1e-6)
+    gx = _grid_cell(x, x0, inv_cw)
+    gy = _grid_cell(y, y0, inv_ch)
+    cell = torch.where(valid, gy * _GRID + gx, _GRID * _GRID)
+    order = torch.argsort(cell, stable=True)
+    cell_sorted = cell[order].contiguous()
+    rows = _pack_prune_rows(desc[order], xy[order], obj[order])
+    starts = torch.searchsorted(
+        cell_sorted, torch.arange(_GRID * _GRID + 1, dtype=torch.int32,
+                                  device=cell.device), side="left")
+    grid = torch.stack([x0, y0, inv_cw, inv_ch]).to(torch.float32)
+    return (rows, order.to(torch.int32), starts.to(torch.int32), grid)
+
+
+def make_pruned_db(db: DeviceDb, coarse: DeviceDb,
+                   window_capacity: int = 16384) -> PrunedDeviceDb:
+    """Build the pruning state from a resident full DB and a coarse DB, on
+    the full DB's device."""
+    rows, order, starts, grid = _build_prune_index(
+        db.descriptors, db.xy, db.obj_points, db.valid)
+    return PrunedDeviceDb(rows=rows, order=order, starts=starts, grid=grid,
+                          coarse=to_device(coarse, db.device),
+                          window_capacity=window_capacity,
+                          has_world=db.has_world, world_frame=db.world_frame)
+
+
+@dataclasses.dataclass
+class PrunedLocalizationResult:
+    result: LocalizationResult       # the fine-stage result
+    coarse_ok: torch.Tensor          # bool — coarse fix succeeded
+    window: torch.Tensor             # [4] f32 (x0, x1, y0, y1) ref frame
+    n_window: torch.Tensor           # int32 — rows inside the window
+    overflow: torch.Tensor           # bool — more rows than the capacity
+    sel: torch.Tensor                # [C] int32 global row ids (M = none)
+
+
+@dataclasses.dataclass
+class WindowRows:
+    """The rows of a window, gathered into window_capacity slots."""
+
+    desc: torch.Tensor       # [C, 61] uint8
+    xy: torch.Tensor         # [C, 2] float32
+    obj: torch.Tensor        # [C, 3] float32
+    valid: torch.Tensor      # [C] bool — slot holds a row inside the window
+    sel: torch.Tensor        # [C] int32 global row id, M where not valid
+    n_window: torch.Tensor   # int32
+    overflow: torch.Tensor   # bool — the cells held more than C rows
+
+
+def window_rows(pdb: PrunedDeviceDb, window) -> WindowRows:
+    """Rows of the pruned DB inside window = (x0, x1, y0, y1).
+
+    The window's cells form ≤ _GRID contiguous runs of sorted rows (one
+    per intersected cell row); slot k of the [C] vector takes the k-th row
+    of the concatenated runs (rows past C are dropped, and `overflow`
+    says so). Cells are a superset of the window, so the exact bbox test
+    on the gathered rows sets `valid`."""
+    lo = window[0::2]
+    hi = window[1::2]
+    g = pdb.grid
+    gx0 = _grid_cell(lo[0], g[0], g[2])
+    gx1 = _grid_cell(hi[0], g[0], g[2])
+    gy0 = _grid_cell(lo[1], g[1], g[3])
+    gy1 = _grid_cell(hi[1], g[1], g[3])
+    dev = pdb.rows.device
+    gys = torch.arange(_GRID, dtype=torch.int32, device=dev)
+    band_in = (gys >= gy0) & (gys <= gy1)
+    band_start = pdb.starts[(gys * _GRID + gx0).long()]
+    band_len = torch.where(
+        band_in, pdb.starts[(gys * _GRID + gx1 + 1).long()] - band_start, 0)
+    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                      torch.cumsum(band_len, 0, dtype=torch.int32)])
+    total = offs[-1]
+    m_total = pdb.rows.shape[0]
+    c = pdb.window_capacity
+    k = torch.arange(c, dtype=torch.int32, device=dev)
+    # Band of slot k = the number of run ends at or before k.
+    band_of = torch.searchsorted(offs[1:].contiguous(), k, side="right",
+                                 out_int32=True).clamp(0, _GRID - 1)
+    pos = band_start[band_of.long()] + (k - offs[band_of.long()])
+    sel_ok = k < torch.clamp(total, max=c)
+    pos = torch.where(sel_ok, pos.clamp(0, max(m_total - 1, 0)), 0)
+    desc_s, xy_s, obj_s = _unpack_prune_rows(pdb.rows[pos.long()])
+    sel_ok = (sel_ok
+              & (xy_s[:, 0] >= lo[0]) & (xy_s[:, 0] <= hi[0])
+              & (xy_s[:, 1] >= lo[1]) & (xy_s[:, 1] <= hi[1]))
+    return WindowRows(
+        desc=desc_s, xy=xy_s, obj=obj_s, valid=sel_ok,
+        sel=torch.where(sel_ok, pdb.order[pos.long()], m_total),
+        n_window=sel_ok.sum(dtype=torch.int32), overflow=total > c)
+
+
+def _pruned_back_half(feats: Features, frame_hw, pdb: PrunedDeviceDb,
+                      camera: CameraModel, config: PipelineConfig,
+                      solve_pose: bool, margin: float
+                      ) -> PrunedLocalizationResult:
+    """Coarse fix, window, fine match and geometry on extracted features."""
+    kp = feats.keypoints
+
+    # Stage 1: coarse fix against the small DB.
+    cm = knn_match(feats.descriptors, pdb.coarse.descriptors,
+                   ratio=config.match.ratio, q_valid=kp.valid,
+                   db_valid=pdb.coarse.valid, block=config.match.db_block,
+                   kernel=config.match.kernel,
+                   db_layout=pdb.coarse.match_layout)
+    cq, ct = matched_points(kp.xy, pdb.coarse.xy, cm)
+    coarse_h = find_homography_ransac(cq, ct, valid=cm.valid,
+                                      config=config.ransac)
+
+    # Reference-frame window = the frame's corners through the coarse H,
+    # grown by `margin` of its extent on each side.
+    h, w = frame_hw
+    corners = torch.tensor([[0.0, 0.0, 1.0], [w, 0.0, 1.0], [0.0, h, 1.0],
+                            [w, h, 1.0]], dtype=torch.float32,
+                           device=kp.xy.device)
+    proj = corners @ coarse_h.H.T
+    den = proj[:, 2:3]
+    pxy = proj[:, :2] / torch.where(den.abs() < 1e-9, 1e-9, den)
+    lo = pxy.amin(0)
+    hi = pxy.amax(0)
+    pad = margin * (hi - lo)
+    lo = lo - pad
+    hi = hi + pad
+    window = torch.stack([lo[0], hi[0], lo[1], hi[1]])
+
+    # Stage 2: the window's rows. Stage 3: fine match + geometry on them.
+    win = window_rows(pdb, window)
+    fm = knn_match(feats.descriptors, win.desc, ratio=config.match.ratio,
+                   q_valid=kp.valid, db_valid=win.valid,
+                   block=config.match.db_block, kernel=config.match.kernel)
+    q_pts, t_pts = matched_points(kp.xy, win.xy, fm)
+    homog = find_homography_ransac(q_pts, t_pts, valid=fm.valid,
+                                   config=config.ransac)
+    pose = None
+    if solve_pose:
+        pose = solve_pose_recentered(win.obj, q_pts, fm, camera, config.pnp,
+                                     world_frame=pdb.world_frame)
+    fine = LocalizationResult(homography=homog, pose=pose,
+                              num_matches=fm.count(),
+                              num_keypoints=kp.count(), keypoints=kp,
+                              matches=fm)
+    return PrunedLocalizationResult(
+        result=fine, coarse_ok=coarse_h.ok, window=window,
+        n_window=win.n_window, overflow=win.overflow, sel=win.sel)
+
+
+def localize_frame_pruned(frame, pdb: PrunedDeviceDb, camera: CameraModel,
+                          config: PipelineConfig = PipelineConfig(),
+                          solve_pose: bool = False,
+                          margin: float = 0.25) -> PrunedLocalizationResult:
+    """Pruned localization on the pruned DB's device: detect once, coarse
+    fix, spatial window, fine match on the window's rows (the counterpart
+    of localize_frame_pruned_jit).
+
+    When the coarse fix fails, `coarse_ok` is False and the fine result is
+    meaningless: callers fall back to `localize_frame_pruned_fallback`.
+    If more rows fall in the window's cells than `window_capacity`,
+    `overflow` is set and the excess rows are dropped in row order.
+    """
+    frame = torch.as_tensor(frame, dtype=torch.float32).to(pdb.device)
+    feats = detect_and_compute(frame, config.akaze)
+    return _pruned_back_half(feats, tuple(frame.shape), pdb,
+                             to_device(camera, pdb.device), config,
+                             solve_pose, margin)
+
+
+def localize_frame_pruned_fallback(frame, pdb: PrunedDeviceDb,
+                                   camera: CameraModel,
+                                   config: PipelineConfig = PipelineConfig(),
+                                   solve_pose: bool = False
+                                   ) -> LocalizationResult:
+    """Full-DB localization rebuilt from the pruned ROW TABLE (the rare
+    coarse-miss / overflow fallback): the DB in sorted order, valid below
+    starts[-1], so no second resident copy of the full DB is kept."""
+    desc, xy, obj = _unpack_prune_rows(pdb.rows)
+    valid = torch.arange(pdb.rows.shape[0], dtype=torch.int32,
+                         device=pdb.device) < pdb.starts[-1]
+    db = DeviceDb(descriptors=desc, xy=xy, valid=valid, obj_points=obj,
+                  has_world=pdb.has_world, world_frame=pdb.world_frame)
+    return localize_frame(frame, db, camera, config, solve_pose)

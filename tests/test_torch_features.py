@@ -232,7 +232,7 @@ def test_detection_matches_jax(jax_ref, torch_ss):
 
 
 def _jax_kps_and_stack(jax_ref):
-    kps = convert.keypoints_from(jax_ref["kps"])
+    kps = convert.keypoints_from(jax_ref["kps"], device="cpu")
     packed = torch.from_numpy(
         np.asarray(jax_ref["packed"], np.float32)).to(torch.bfloat16)
     return kps, packed, torch.from_numpy(np.array(jax_ref["level_hw"]))

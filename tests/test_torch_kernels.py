@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from cubesat_apds_tpu_torch.ops.features import scale_space as tss
+from cubesat_apds_tpu_torch.ops import match as tmatch
 from cubesat_apds_tpu_torch.ops.kernels import diffusion as tdiff
+from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
 from cubesat_apds_tpu_torch.ops.kernels import sample_kernel as tsk
 
 
@@ -43,6 +45,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         tsk.sample_patches_cuda(stack, torch.zeros(1, 2, dtype=torch.int32),
                                 i, i, i, i[:, None], i[:, None])
+
+
+@pytest.mark.parametrize("q,m", [(2048, 1 << 20), (2048, 1_000_003),
+                                 (100, 3000), (5000, 300), (1, 0), (1, 1)])
+def test_knn_split_plan_covers_the_db(q, m):
+    """Kernel 4's launch plan: chunks are whole shared-memory tiles, cover
+    the DB with no empty chunk, fit the grid's y limit, and give the H100's
+    132 SMs several blocks each wherever the DB has the tiles for it."""
+    nqb, n_split, chunk = tmk.split_plan(q, m, 132)
+    assert nqb == -(-q // tmk.QUERIES_PER_BLOCK)
+    assert chunk % tmk.ROWS_PER_TILE == 0 and n_split * chunk >= m
+    assert (n_split - 1) * chunk < max(m, 1) and 1 <= n_split <= 65535
+    n_tiles = -(-m // tmk.ROWS_PER_TILE)
+    assert nqb * n_split >= min(132 * tmk.BLOCKS_PER_SM, nqb * n_tiles)
+
+
+def test_knn_wrappers_refuse_other_devices():
+    """Kernel 4's entry point raises on CPU tensors, and the dispatch
+    raises on a device that is neither CPU nor CUDA."""
+    w = torch.zeros(4, 16, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tmk.knn2_hamming_cuda(w, w, torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tmk.knn2_fused(w.to("meta"), w.to("meta"))
 
 
 def test_sampler_twin_clamps_levels_into_the_stack():
@@ -111,3 +137,35 @@ def test_sample_kernel_matches_twin_on_card(cuda_device):
     ref = tsk.sample_patches_plain(stack, t[0], t[1].long(), t[4], t[5])
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_knn2_kernel_matches_twin_on_card(cuda_device):
+    """Kernel 4 vs its plain twin on the card, bit-exact on d0, d1 and i0:
+    a ragged DB with ~5% invalid rows, rows duplicated across the
+    kernel's chunk edges and the twin's block edges (ties: the lowest
+    index wins, the duplicate stays second-best), and a query block that
+    is only partly filled."""
+    rng = np.random.default_rng(4)
+    q_n, m, block = 300, 200_003, 65536
+    db = rng.integers(0, 256, (m, 61), dtype=np.uint8)
+    q = rng.integers(0, 256, (q_n, 61), dtype=np.uint8)
+    valid = rng.random(m) > 0.05
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    _, _, chunk = tmk.split_plan(q_n, m, sms)
+    for j, edge in enumerate([chunk, 2 * chunk, block, m - 1]):
+        db[[edge - 1, edge]] = q[j]
+        valid[[edge - 1, edge]] = True
+    valid[chunk + 5] = False
+    db[chunk + 5] = q[4]                 # an exact hit that is invalid
+    t = {k: torch.from_numpy(a).to(cuda_device)
+         for k, a in (("q", q), ("db", db), ("valid", valid))}
+    layout = tmk.layout_db_blocks(tmk.pack_words(t["db"]), t["valid"])
+    got = tmk.knn2_hamming_cuda(tmk.pack_words(t["q"]), *layout)
+    ref = tmatch.knn2_blockwise(tmatch.unpack_bits(t["q"]), t["db"], block,
+                                t["valid"])
+    torch.cuda.synchronize()
+    for name, g, r in zip(("d0", "d1", "i0"), got, ref):
+        assert torch.equal(g, r), name
+    i0 = got[2].cpu().numpy()
+    assert list(i0[:4]) == [chunk - 1, 2 * chunk - 1, block - 1, m - 2]

@@ -115,7 +115,8 @@ def test_slice_matches_localize_frame_jit(scene):
     frame, db = scene
     ref = localize_frame_jit(jnp.asarray(frame), JDeviceDb(**db),
                              JCameraModel.ideal(*CAM), JCFG, solve_pose=True)
-    got = localize_frame(torch.from_numpy(frame), convert.device_db_from(db),
+    got = localize_frame(torch.from_numpy(frame),
+                         convert.device_db_from(db, device="cpu"),
                          CameraModel.ideal(*CAM), TCFG, solve_pose=True)
     assert bool(got.homography.ok) and bool(ref.homography.ok)
     a = _inlier_rows(got.keypoints.xy, got.matches.query_idx,
@@ -138,7 +139,7 @@ def test_localizer_caches_db_and_matches_localize_frame(scene):
     """Localizer keeps the converted DB resident and gives the same answer
     as localize_frame (deterministic draws from the seeded generator)."""
     frame, db = scene
-    tdb = convert.device_db_from(db)
+    tdb = convert.device_db_from(db, device="cpu")
     loc = Localizer(tdb, CameraModel.ideal(*CAM), TCFG, device="cpu")
     assert loc.db.descriptors.device.type == "cpu"
     a = loc.localize(frame)
@@ -155,7 +156,8 @@ def test_blank_frame_fails_closed(scene):
     and the pose report ok=False instead of raising."""
     _, db = scene
     res = localize_frame(np.zeros((N, N), np.float32),
-                         convert.device_db_from(db), CameraModel.ideal(*CAM),
+                         convert.device_db_from(db, device="cpu"),
+                         CameraModel.ideal(*CAM),
                          TCFG, solve_pose=True)
     assert int(res.num_keypoints) == 0 and int(res.num_matches) == 0
     assert res.keypoints.xy.shape == (CAP, 2)
@@ -166,7 +168,7 @@ def test_convert_round_trip(scene):
     """numpy → port → numpy preserves every DB field bit for bit, and a
     Features dict converts with the JAX package's field names."""
     _, db = scene
-    back = convert.to_numpy(convert.device_db_from(db))
+    back = convert.to_numpy(convert.device_db_from(db, device="cpu"))
     for k, v in db.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
     feats = {"keypoints": {"xy": db["xy"][:5], "size": np.ones(5),
@@ -174,7 +176,7 @@ def test_convert_round_trip(scene):
                            "octave": np.zeros(5), "class_id": np.arange(5),
                            "valid": np.ones(5, bool)},
              "descriptors": db["descriptors"][:5]}
-    f = convert.features_from(feats)
+    f = convert.features_from(feats, device="cpu")
     assert f.keypoints.octave.dtype == torch.int32
     assert f.descriptors.dtype == torch.uint8 and f.capacity == 5
 

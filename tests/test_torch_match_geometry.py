@@ -127,11 +127,23 @@ def test_knn2_ties_and_sentinels_match_jax(descriptors):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-def test_knn_match_big_db_branch_not_ported():
-    """A DB past db_block is slice 2: it raises instead of guessing."""
-    d = torch.zeros((5, 61), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tmatch.knn_match(d, d, block=4)
+def test_knn_match_big_db_branch_not_ported(descriptors):
+    """A DB past db_block (ported since: the big-DB branch) no longer
+    raises: on CPU tensors it runs the blockwise twin, bit-exact with
+    JAX's scan, and gives the dense branch's matches when no query is
+    masked (q_valid masks only d0 there)."""
+    qd, db, _, db_valid = descriptors
+    kw = dict(ratio=0.75, db_valid=torch.from_numpy(db_valid))
+    got = tmatch.knn_match(torch.from_numpy(qd), torch.from_numpy(db),
+                           block=64, **kw)
+    dense = tmatch.knn_match(torch.from_numpy(qd), torch.from_numpy(db), **kw)
+    ref = jmatch.knn_match(jnp.asarray(qd), jnp.asarray(db), ratio=0.75,
+                           db_valid=jnp.asarray(db_valid), block=64,
+                           kernel="scan")
+    for f in ("query_idx", "train_idx", "distance", "valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+        assert torch.equal(getattr(got, f), getattr(dense, f)), f
 
 
 # --- small geometry: parity of each building block -------------------------
@@ -194,7 +206,7 @@ def test_geometry_block_matches_jax(name):
         K = np.array([[800, 0.5, 250], [0, 790, 260], [0, 0, 1]], np.float32)
         dist = np.array([0.05, -0.01, 0.001, -0.002, 0.003], np.float32)
         p = rng.uniform(0, 500, (40, 2)).astype(np.float32)
-        cam_t = convert.camera_from({"K": K, "dist": dist})
+        cam_t = convert.camera_from({"K": K, "dist": dist}, device="cpu")
         pairs = [(tcam.pixels_to_normalized(_t(p), cam_t),
                   jcam.pixels_to_normalized(p, JCameraModel(K=K, dist=dist)))]
     else:
@@ -316,7 +328,7 @@ def test_pnp_ransac_matches_jax(gate):
     got = tpnp.solve_pnp_ransac(
         Correspondences(obj_points=_t(obj), img_points=_t(pix),
                         valid=torch.from_numpy(valid)),
-        convert.camera_from({"K": K, "dist": dist}), cfg_t,
+        convert.camera_from({"K": K, "dist": dist}, device="cpu"), cfg_t,
         up=None if up is None else _t(up), r=torch.from_numpy(np.array(r)))
     assert bool(got.ok) == bool(ref.ok)
     Rg = trod.rodrigues_to_matrix(got.rvec).numpy()
