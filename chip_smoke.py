@@ -8,12 +8,19 @@
 2. Kernel phase: each kernel against its plain PyTorch twin on the card —
    kernel A (FED cycle) at every main-path shape with its real τ schedule,
    at 1024² and on a ragged 72×128 case (atol 1e-5); kernel B (patch
-   sampler) at K=2048 with S=109 and S=441 (bit-exact); kernel 4 (Hamming
-   kNN-2) bit-exact on d0, d1 and i0 at Q=2048 × M=1,048,576, on a ragged
-   M=1,000,003 with ~5% invalid rows and on rows duplicated across the
-   kernel's chunk edges — with median times of each kernel and its twin
-   from CUDA events, and each kernel's bound (the least time the card
-   could take for the same work).
+   sampler, a direct gather) at K=2048 with S=109 and S=441 (bit-exact),
+   beside one index_select of the same samples; kernel 4 (Hamming kNN-2
+   on int8 tensor cores) bit-exact on d0, d1 and i0 at Q=2048 ×
+   M=1,048,576, on a ragged M=1,000,003 with ~5% invalid rows and on rows
+   duplicated across the kernel's chunk edges, beside torch._int_mm of the
+   same bits (the products alone), with its compiled tile shape, shared
+   memory, blocks per SM and, where cuobjdump is at hand, its tensor-core
+   (IGMMA) instructions —
+   with median times of each kernel and its twin from CUDA events around
+   back-to-back eager calls ("ms", what the main path pays per call), each
+   kernel's and library call's device time from CUDA-graph replays
+   ("device_ms", the host's per-call cost left out), and each kernel's
+   bound (the least time the card could take for the same work).
 3. Slice phase: bench.py's scene (512² frame from seed 42, a 10,240-row DB
    built by the port from the frame rolled by (7, 13)) through
    Localizer.localize with solve_pose=True: the homography must recover the
@@ -104,22 +111,49 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps=20, rounds=5):
-    """Median over `rounds` of the mean time of `reps` back-to-back calls,
-    from CUDA events (ms per call)."""
-    fn()
-    torch.cuda.synchronize()
+def _median_event_ms(torch, run, per_run, rounds):
     times = []
     for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(reps):
-            fn()
+        run()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+        times.append(a.elapsed_time(b) / per_run)
     return float(np.median(times))
+
+
+def cuda_ms(torch, fn, reps=20, rounds=5):
+    """Median over `rounds` of the mean time of `reps` back-to-back calls,
+    from CUDA events (ms per call): what an eager caller pays, the host's
+    per-call cost included wherever it exceeds the device time."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    return _median_event_ms(torch, run, reps, rounds)
+
+
+def graph_ms(torch, fn, reps=20, rounds=5):
+    """Device time per call: `reps` calls captured in one CUDA graph, its
+    replays timed with CUDA events, so the host's per-call cost (the
+    wrapper's checks, ctypes) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _median_event_ms(torch, graph.replay, reps, rounds)
 
 
 def kernel_phase(torch, dev):
@@ -142,7 +176,7 @@ def kernel_phase(torch, dev):
                   False))
 
     log("kernel A (FED cycle) vs plain twin on the card:")
-    a_err, a_ms, a_plain_ms = 0.0, 0.0, 0.0
+    a_err, a_ms, a_dev_ms, a_plain_ms = 0.0, 0.0, 0.0, 0.0
     a_bytes, a_flops = 0, 0
     for name, h, w, taus, on_path in cases:
         L = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).to(dev)
@@ -153,14 +187,17 @@ def kernel_phase(torch, dev):
         err = float((got - ref).abs().max())
         exact = bool(torch.equal(got, ref))
         ms = cuda_ms(torch, lambda: diffusion.fed_cycle_cuda(L, g, taus))
+        dms = graph_ms(torch, lambda: diffusion.fed_cycle_cuda(L, g, taus))
         pms = cuda_ms(torch, lambda: diffusion.fed_cycle(L, g, taus))
         log(f"  {name:>13} {h}x{w} n={len(taus):2d}: max_abs_err={err:.3e} "
-            f"bit_exact={exact} kernel={ms:.4f} ms plain={pms:.4f} ms")
+            f"bit_exact={exact} kernel={ms:.4f} ms (device {dms:.4f}) "
+            f"plain={pms:.4f} ms")
         check(np.isfinite(err) and err <= FED_ATOL,
               f"kernel A {name} within {FED_ATOL}")
         a_err = max(a_err, err)
         if on_path:
             a_ms += ms
+            a_dev_ms += dms
             a_plain_ms += pms
             # L and g read once, the result written once; 17 flops per
             # pixel per explicit step (fed_cycle.cu).
@@ -179,25 +216,27 @@ def kernel_phase(torch, dev):
     lvl_np = rng.integers(0, L, K).astype(np.int32)
     cx_np = np.array([rng.integers(0, w) for w in hw[lvl_np, 1]], np.int32)
     cy_np = np.array([rng.integers(0, h) for h in hw[lvl_np, 0]], np.int32)
-    lvl, cx, cy = (torch.from_numpy(a).to(dev) for a in (lvl_np, cx_np, cy_np))
-    b_err, b_ms, b_plain_ms, b_lib_ms, b_bytes = 0.0, 0.0, 0.0, 0.0, 0
+    lvl = torch.from_numpy(lvl_np).to(dev)
+    b_err, b_bytes = 0.0, 0
+    b_ms = b_dev_ms = b_plain_ms = b_lib_ms = b_lib_dev_ms = 0.0
     for S, reach in ((109, 29), (441, 29), (441, 45)):
         iy = torch.from_numpy((cy_np[:, None] + rng.integers(
             -reach, reach + 1, (K, S))).astype(np.int32)).to(dev)
         ix = torch.from_numpy((cx_np[:, None] + rng.integers(
             -reach, reach + 1, (K, S))).astype(np.int32)).to(dev)
-        got = sample_kernel.sample_patches_cuda(stack, level_hw, lvl, cx, cy,
-                                                iy, ix)
+        got = sample_kernel.sample_patches_cuda(stack, level_hw, lvl, iy, ix)
         ref = sample_kernel.sample_patches_plain(stack, level_hw, lvl.long(),
                                                  iy, ix)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         ms = cuda_ms(torch, lambda: sample_kernel.sample_patches_cuda(
-            stack, level_hw, lvl, cx, cy, iy, ix))
+            stack, level_hw, lvl, iy, ix))
+        dms = graph_ms(torch, lambda: sample_kernel.sample_patches_cuda(
+            stack, level_hw, lvl, iy, ix))
         pms = cuda_ms(torch, lambda: sample_kernel.sample_patches_plain(
             stack, level_hw, lvl.long(), iy, ix))
         log(f"  K={K} S={S} reach=±{reach}: bit_exact={torch.equal(got, ref)} "
-            f"kernel={ms:.4f} ms plain={pms:.4f} ms")
+            f"kernel={ms:.4f} ms (device {dms:.4f}) plain={pms:.4f} ms")
         check(torch.equal(got, ref), f"kernel B K={K} S={S} ±{reach} bit-exact")
         b_err = max(b_err, err)
         if reach == 29:            # the main path's sample reach
@@ -210,10 +249,15 @@ def kernel_phase(torch, dev):
                    + torch.minimum(ix.clamp(min=0), ws - 1)).reshape(-1)
             flat = stack.reshape(L * H * W, 4)
             lms = cuda_ms(torch, lambda: torch.index_select(flat, 0, lin))
-            log(f"    library index_select of the same samples: {lms:.4f} ms")
+            dlms = graph_ms(torch, lambda: torch.index_select(flat, 0, lin))
+            log(f"    library index_select of the same samples: {lms:.4f} ms "
+                f"(device {dlms:.4f}); kernel / index_select = "
+                f"{ms / lms:.3f} (device {dms / dlms:.3f})")
             b_ms += ms
+            b_dev_ms += dms
             b_plain_ms += pms
             b_lib_ms += lms
+            b_lib_dev_ms += dlms
             # Per sample: iy and ix read, one 8-byte texel read, 16 bytes
             # written.
             b_bytes += K * S * 32
@@ -221,21 +265,24 @@ def kernel_phase(torch, dev):
     b_bound = b_bytes / HBM_BYTES_PER_S * 1e3
     log(f"bounds: kernel A {a_bound:.5f} ms ({a_bytes} B, {a_flops} flops "
         f"over the frame's 15 cycles), kernel B {b_bound:.5f} ms "
-        f"({b_bytes} B at S=109+441)")
+        f"({b_bytes} B at S=109+441); kernel B at S=109+441 "
+        f"{b_ms:.4f} ms = {b_ms / b_lib_ms:.3f} x index_select (device "
+        f"{b_dev_ms:.4f} ms = {b_dev_ms / b_lib_dev_ms:.3f} x)")
     return [
         {"name": "fed_cycle", "route": "cuda",
          "source": "cubesat_apds_tpu_torch/csrc/fed_cycle.cu",
          "replaces": "cubesat_apds_tpu/ops/pallas/diffusion.py:46",
-         "max_abs_err": a_err, "ms": a_ms, "plain_ms": a_plain_ms,
-         "bound_ms": a_bound,
+         "max_abs_err": a_err, "ms": a_ms, "device_ms": a_dev_ms,
+         "plain_ms": a_plain_ms, "bound_ms": a_bound,
          "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
                       >= a_flops / FP32_FLOPS else "operations"),
          "library_ms": None},
         {"name": "sample_patches", "route": "cuda",
          "source": "cubesat_apds_tpu_torch/csrc/sample_patches.cu",
          "replaces": "cubesat_apds_tpu/ops/pallas/sample_kernel.py:44",
-         "max_abs_err": b_err, "ms": b_ms, "plain_ms": b_plain_ms,
-         "bound_ms": b_bound, "bound_by": "bytes", "library_ms": b_lib_ms},
+         "max_abs_err": b_err, "ms": b_ms, "device_ms": b_dev_ms,
+         "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": "bytes",
+         "library_ms": b_lib_ms, "library_device_ms": b_lib_dev_ms},
     ]
 
 
@@ -281,7 +328,7 @@ def knn_phase(torch, dev, Q=2048, m_main=BIG_DB_ROWS, m_rag=1_000_003):
         f"(chunk {chunk} rows, {sms} SMs):")
     qw = tmk.pack_words(q)
     qb = tmatch.unpack_bits(q)
-    err, ms, pms = 0.0, None, None
+    err, ms, dms, pms = 0.0, None, None, None
     for name, db, valid in cases:
         layout = tmk.layout_db_blocks(tmk.pack_words(db), valid)
         got = tmk.knn2_hamming_cuda(qw, *layout)
@@ -306,6 +353,8 @@ def knn_phase(torch, dev, Q=2048, m_main=BIG_DB_ROWS, m_rag=1_000_003):
         if db is db_main:
             ms = cuda_ms(torch, lambda: tmk.knn2_hamming_cuda(qw, *layout),
                          reps=5, rounds=5)
+            dms = graph_ms(torch, lambda: tmk.knn2_hamming_cuda(qw, *layout),
+                           reps=5, rounds=5)
             pms = cuda_ms(torch, lambda: tmatch.knn2_blockwise(
                 qb, db, block, valid), reps=1, rounds=3)
     ops = 2 * Q * m_main * 512           # as an int8 product on unpacked bits
@@ -313,16 +362,75 @@ def knn_phase(torch, dev, Q=2048, m_main=BIG_DB_ROWS, m_rag=1_000_003):
     bound = max(ops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3
     popc_bound = (Q * m_main * 16
                   / (POPC_PER_CLOCK_PER_SM * sms * BOOST_HZ)) * 1e3
-    log(f"  Q={Q} x M={m_main}: kernel={ms:.4f} ms plain={pms:.4f} ms; "
+    mm_ms = int8_product_ms(torch, qb, db_main, block)
+    log(f"  Q={Q} x M={m_main}: kernel={ms:.4f} ms (device {dms:.4f}) "
+        f"plain={pms:.4f} ms; "
         f"bound {bound:.4f} ms (int8 tensor-core ops; bytes alone "
         f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), AND+POPC form bound "
-        f"{popc_bound:.4f} ms")
+        f"{popc_bound:.4f} ms; int8 product alone (torch._int_mm, "
+        f"{block}-row blocks) {mm_ms:.4f} ms")
+    log_knn_build()
     return {"name": "knn2_hamming", "route": "cuda",
             "source": "cubesat_apds_tpu_torch/csrc/knn2_hamming.cu",
             "replaces": "cubesat_apds_tpu/ops/pallas/match_kernel.py:130",
-            "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
             "bound_ms": bound, "bound_by": "operations", "library_ms": None,
-            "popc_bound_ms": popc_bound}
+            "popc_bound_ms": popc_bound, "int8_product_ms": mm_ms}
+
+
+def int8_product_ms(torch, q_bits, db_packed, block):
+    """Reference, not a kNN-2: torch._int_mm of the unpacked int8 query
+    bits [Q, 512] against the unpacked DB in `block`-row blocks (the
+    products alone, no top-2). Unpacked outside the timing."""
+    from cubesat_apds_tpu_torch.ops import match as tmatch
+
+    db_bits = tmatch.unpack_bits(db_packed)
+    blocks = [db_bits[s:s + block].t() for s in range(0, len(db_bits), block)]
+
+    def products():
+        for b in blocks:
+            torch._int_mm(q_bits, b)
+
+    return cuda_ms(torch, products, reps=3, rounds=5)
+
+
+def log_knn_build():
+    """Kernel 4's launch shape as compiled, and the tensor-core
+    instructions in its SASS where cuobjdump is at hand."""
+    import os
+    import shutil
+
+    from cubesat_apds_tpu_torch.ops.kernels import build
+    from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
+
+    info = tmk.kernel_info()
+    log(f"  kernel 4 chunk kernel: tile {info['queries_per_block']} queries "
+        f"x {info['rows_per_tile']} DB rows x 512 bits, {info['threads']} "
+        f"threads, {info['smem_bytes']} B shared memory per block "
+        f"({info['stages']} stages), {info['registers']} registers/thread, "
+        f"{info['spill_bytes']} B spilled, {info['blocks_per_sm']} blocks "
+        f"per SM")
+    check(info["blocks_per_sm"] >= 1 and info["smem_bytes"] == tmk.SMEM_BYTES
+          and info["rows_per_tile"] == tmk.ROWS_PER_TILE
+          and info["queries_per_block"] == tmk.QUERIES_PER_BLOCK,
+          "kernel 4's compiled shape matches its wrapper's plan")
+    tool = shutil.which("cuobjdump") or shutil.which(
+        "cuobjdump", path=os.path.dirname(build.find_nvcc()))
+    if tool is None:
+        log("  cuobjdump: absent, tensor-core instructions not counted")
+        return
+    out = subprocess.run([tool, "-sass", str(build.load_kernels().path)],
+                         capture_output=True, text=True, timeout=120)
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "knn2_partial" in fn:
+            for op in line.replace(";", " ").split():
+                if "MMA" in op:
+                    counts[op] = counts.get(op, 0) + 1
+    log(f"  cuobjdump -sass: tensor-core instructions in knn2_partial_kernel: "
+        f"{counts or 'none'} (rc {out.returncode})")
 
 
 def inlier_pairs(res):

@@ -10,87 +10,68 @@
 // level stack at (clip(iy, 0, h-1), clip(ix, 0, w-1)) of that level, widened
 // to float32 — exactly the gather of orientation.py:gather_sampler.
 //
-// What bounds it on the H100: random-access latency. Each sample is one
-// 8-byte read at a data-dependent address; a sample-at-a-time gather pays a
-// dependent trip to L2/HBM per sample, and a keypoint's S samples land in a
-// small neighbourhood that such a gather re-reads many times.
+// What bounds it on the H100: bytes, and the latency of a data-dependent
+// read. Each sample moves 32 B (iy and ix read, one 8-byte texel read, a
+// 16-byte result written). The whole stack (16 levels x 512^2 x 8 B = 32 MB)
+// fits the 50 MB L2, and a keypoint's samples lie within ~29 px of each
+// other, so neighbouring samples share L1 lines.
 //
-// What the design does about it: one block per keypoint stages the keypoint's
-// level-clamped window of rows/cols [c - 30, c + 30] around its integer
-// centre (<= 61 x 61 pixels x 8 bytes = 29.8 KB of shared memory) with
-// coalesced row reads, then each thread serves samples from shared memory.
-// A sample that falls outside the window (not produced by the default AKAZE
-// geometry, where every sample lies within 29 px of the centre) is read from
-// device memory instead, so the result is exact for any input. The output is
-// the bf16 bits shifted into float32: bit-identical to the plain twin.
+// What the design does about it: a direct gather. One thread per sample on a
+// flat grid over K*S reads its (iy, ix) coalesced, clamps level, row and
+// column, reads its texel through the read-only cache (__ldg) and writes the
+// widened float4 coalesced. Nothing is staged: the TPU kernel's DMA of a
+// window around each keypoint (and the port's first version, which staged a
+// 61 x 61 window in shared memory) existed because the TPU has no fast gather;
+// on Hopper the window cost up to 34x the sampled texels and a barrier in
+// front of the first sample. The output is the bf16 bits shifted into
+// float32: bit-identical to the plain twin.
 
 #include <cuda_runtime.h>
 
-#define PATCH_R 30
-#define PATCH_W (2 * PATCH_R + 1)
+#define SAMPLE_THREADS 256
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
     return min(max(v, lo), hi);
 }
 
-__global__ void sample_patches_kernel(const uint2* __restrict__ stack,   // [L, Hmax, Wmax] x 4 bf16
-                                      const int* __restrict__ level_hw,  // [L, 2]
-                                      const int* __restrict__ lvl,       // [K]
-                                      const int* __restrict__ cx,        // [K]
-                                      const int* __restrict__ cy,        // [K]
-                                      const int* __restrict__ iy,        // [K, S]
-                                      const int* __restrict__ ix,        // [K, S]
-                                      float4* __restrict__ out,          // [K, S]
-                                      int S, int L, int Hmax, int Wmax) {
-    __shared__ uint2 win[PATCH_W * PATCH_W];
-    const int k = blockIdx.x;
+__global__ void __launch_bounds__(SAMPLE_THREADS)
+sample_patches_kernel(const uint2* __restrict__ stack,   // [L, Hmax, Wmax] x 4 bf16
+                      const int* __restrict__ level_hw,  // [L, 2]
+                      const int* __restrict__ lvl,       // [K]
+                      const int* __restrict__ iy,        // [K, S]
+                      const int* __restrict__ ix,        // [K, S]
+                      float4* __restrict__ out,          // [K, S]
+                      int n, int S, int L, int Hmax, int Wmax) {
+    const int i = blockIdx.x * SAMPLE_THREADS + threadIdx.x;
+    if (i >= n) return;
     // Level and level size clamped into the stack, so no input can make
     // the kernel read outside it (the plain twin clamps the same way).
-    const int l = clampi(lvl[k], 0, L - 1);
-    const int h = clampi(level_hw[2 * l], 1, Hmax);
-    const int w = clampi(level_hw[2 * l + 1], 1, Wmax);
-    const int wr0 = clampi(cy[k] - PATCH_R, 0, h - 1);
-    const int wr1 = clampi(cy[k] + PATCH_R, 0, h - 1);
-    const int wc0 = clampi(cx[k] - PATCH_R, 0, w - 1);
-    const int wc1 = clampi(cx[k] + PATCH_R, 0, w - 1);
-    const int wh = wr1 - wr0 + 1, ww = wc1 - wc0 + 1;
-    const uint2* base = stack + (size_t)l * Hmax * Wmax;
-
-    for (int i = threadIdx.x; i < wh * ww; i += blockDim.x) {
-        const int y = i / ww, x = i - y * ww;
-        win[i] = base[(size_t)(wr0 + y) * Wmax + (wc0 + x)];
-    }
-    __syncthreads();
-
-    const size_t row = (size_t)k * S;
-    for (int s = threadIdx.x; s < S; s += blockDim.x) {
-        const int yy = clampi(iy[row + s], 0, h - 1);
-        const int xx = clampi(ix[row + s], 0, w - 1);
-        uint2 p;
-        if (yy >= wr0 && yy <= wr1 && xx >= wc0 && xx <= wc1) {
-            p = win[(yy - wr0) * ww + (xx - wc0)];
-        } else {
-            p = base[(size_t)yy * Wmax + xx];
-        }
-        // Little-endian: channel 0 is the low half of the first word.
-        out[row + s] = make_float4(__uint_as_float(p.x << 16),
-                                   __uint_as_float(p.x & 0xffff0000u),
-                                   __uint_as_float(p.y << 16),
-                                   __uint_as_float(p.y & 0xffff0000u));
-    }
+    const int l = clampi(__ldg(lvl + i / S), 0, L - 1);
+    const int h = clampi(__ldg(level_hw + 2 * l), 1, Hmax);
+    const int w = clampi(__ldg(level_hw + 2 * l + 1), 1, Wmax);
+    const int yy = clampi(__ldg(iy + i), 0, h - 1);
+    const int xx = clampi(__ldg(ix + i), 0, w - 1);
+    const uint2 p = __ldg(stack + ((size_t)l * Hmax + yy) * Wmax + xx);
+    // Little-endian: channel 0 is the low half of the first word.
+    out[i] = make_float4(__uint_as_float(p.x << 16),
+                         __uint_as_float(p.x & 0xffff0000u),
+                         __uint_as_float(p.y << 16),
+                         __uint_as_float(p.y & 0xffff0000u));
 }
 
-// Launches one block per keypoint on `stream`; returns cudaGetLastError().
+// Launches one thread per sample on `stream`; returns cudaGetLastError().
+// K * S must be below 2^31.
 extern "C" int apds_sample_patches(const void* stack, const int* level_hw,
-                                   const int* lvl, const int* cx, const int* cy,
-                                   const int* iy, const int* ix, void* out,
-                                   int K, int S, int L, int Hmax, int Wmax,
-                                   void* stream) {
-    if (K < 1 || S < 1 || L < 1 || Hmax < 1 || Wmax < 1) {
+                                   const int* lvl, const int* iy, const int* ix,
+                                   void* out, int K, int S, int L, int Hmax,
+                                   int Wmax, void* stream) {
+    const long long n = (long long)K * S;
+    if (K < 1 || S < 1 || L < 1 || Hmax < 1 || Wmax < 1 || n >= (1LL << 31)) {
         return (int)cudaErrorInvalidValue;
     }
-    sample_patches_kernel<<<K, 128, 0, (cudaStream_t)stream>>>(
-        (const uint2*)stack, level_hw, lvl, cx, cy, iy, ix, (float4*)out,
-        S, L, Hmax, Wmax);
+    const int blocks = (int)((n + SAMPLE_THREADS - 1) / SAMPLE_THREADS);
+    sample_patches_kernel<<<blocks, SAMPLE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint2*)stack, level_hw, lvl, iy, ix, (float4*)out, (int)n, S, L,
+        Hmax, Wmax);
     return (int)cudaGetLastError();
 }

@@ -77,10 +77,7 @@ def detect_and_compute(img, config: AkazeConfig = AkazeConfig(),
         xy, size = kps.xy[:n], kps.size[:n]
         class_id, octave, valid = kps.class_id[:n], kps.octave[:n], kps.valid[:n]
         lvl = class_id.clamp(0, packed.shape[0] - 1)
-        ratio = torch.exp2(octave.to(torch.float32))
-        cx = torch.floor(xy[:, 0] / ratio + 0.5).to(torch.int32)
-        cy = torch.floor(xy[:, 1] / ratio + 0.5).to(torch.int32)
-        sample_fn = patch_sampler(packed, level_hw, lvl, cx, cy)
+        sample_fn = patch_sampler(packed, level_hw, lvl)
         angle[:n] = compute_orientations(packed, level_hw, xy, size, class_id,
                                          octave, valid, sample_fn=sample_fn)
         desc[:n] = mldb_descriptors(packed, level_hw, xy, size, angle[:n],

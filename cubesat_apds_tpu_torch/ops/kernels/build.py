@@ -1,15 +1,17 @@
 """Build and load the package's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into a shared
-library with a plain C interface, loaded with ``ctypes`` (no PyTorch
-headers, so a build takes seconds). The library lands in
-``build/kernels/`` at the repository root, named by a hash of the
-sources and flags: the first call after a source change rebuilds, later
-calls and processes reuse it. Nothing is built at import time.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` call, all started
+together, and one more call links them into a shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The library lands in ``build/kernels/`` at the repository
+root, named by a hash of the sources and flags: the first call after a
+source change rebuilds, later calls and processes reuse it. Nothing is
+built at import time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -22,7 +24,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,12 +34,13 @@ _SIGNATURES = {
     # L, g, out, H, W, tile_h, tile_w, half_taus (host), n_steps,
     # smem_bytes, stream
     "apds_fed_cycle": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
-    # stack, level_hw, lvl, cx, cy, iy, ix, out, K, S, L, Hmax, Wmax, stream
-    "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _P),
+    # stack, level_hw, lvl, iy, ix, out, K, S, L, Hmax, Wmax, stream
+    "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q_words, db_words, vpop, partial, d0, d1, i0, Q, M, n_split, chunk,
     # stream
     "apds_knn2_hamming": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # info (int32 [8], host)
+    "apds_knn2_info": (_P,),
 }
 
 
@@ -72,11 +76,46 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libapds_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc_all(cmds) -> str:
+    """Run the nvcc commands `cmds` all at once; their joined output, or
+    raise with the first failure's command and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _build(so: Path) -> str:
+    """One nvcc per source, all started together, then one link into `so`;
+    returns nvcc's output."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    srcs = _sources()
+    objs = [BUILD_DIR / f"{so.stem}.{os.getpid()}.{s.stem}.o" for s in srcs]
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    try:
+        log = _nvcc_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                         for s, o in zip(srcs, objs)])
+        log += _nvcc_all([[nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *(str(o) for o in objs)]])
+        os.replace(tmp, so)     # atomic: a concurrent build never sees half a file
+    finally:
+        tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return log
 
 
 def load_kernels() -> KernelLibrary:
@@ -87,17 +126,7 @@ def load_kernels() -> KernelLibrary:
     so = library_path()
     log = ""
     if not so.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, so)     # atomic: a concurrent build never sees half a file
+        log = _build(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -114,11 +143,23 @@ def check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {err}")
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The raw handle of the current stream on `t`'s device (the cheap
+    query: no Stream object is made)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def on_device(dev):
+    """A context that makes `dev` the current CUDA device around a launch;
+    a no-op, and a cheap one, when it already is."""
+    import torch
+
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def ptr(t) -> int:
+    return t.data_ptr()

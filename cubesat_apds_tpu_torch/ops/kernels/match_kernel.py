@@ -13,13 +13,17 @@ The DB layout (`layout_db_blocks`, made once per DB) is the row-major
 [M, 16] int32 word table plus one int32 plane `vpop`: popcount(row) for a
 valid row, a sentinel ≥ 2^29 for an invalid one, so the kernel's per-pair
 value vpop − 2·popcount(q AND row) is the distance minus popcount(q) for
-a valid row and ≥ 2^29 for an invalid one.
+a valid row and ≥ 2^29 for an invalid one. The DB stays packed in device
+memory: the kernel unpacks each tile of it into shared memory (one byte
+per bit) and computes popcount(q AND row) as an int8 tensor-core product.
 
 `knn2_fused` dispatches on the device of its tensors: CPU tensors go to
 the twin, CUDA tensors to the kernel, anything else raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -30,8 +34,14 @@ WORDS = DESC_BITS_PADDED // 32          # 16 int32 words per descriptor
 VPOP_INVALID = (1 << 29) + 1024         # vpop of an invalid row
 BIG = 1 << 29                           # per-pair values ≥ BIG are invalid
 QUERIES_PER_BLOCK = 128                 # KNN_QB in knn2_hamming.cu
-ROWS_PER_TILE = 256                     # KNN_TILE in knn2_hamming.cu
-BLOCKS_PER_SM = 8                       # the split aims at this many in flight
+ROWS_PER_TILE = 128                     # KNN_TILE in knn2_hamming.cu
+STAGES = 2                              # KNN_STAGES in knn2_hamming.cu
+# KNN_SMEM_BYTES: each stage holds a tile unpacked to one byte per bit and
+# its rows' keys; then 5 mbarriers.
+SMEM_BYTES = STAGES * ROWS_PER_TILE * (DESC_BITS_PADDED + 4) + 5 * 8
+SMEM_LIMIT = 232448                     # an H100 block's shared-memory cap
+BLOCKS_PER_SM = 8                       # the split aims at this many per SM
+MAX_CHUNK_ROWS = 1 << 20                # KNN_MAX_CHUNK: a key's index field
 
 
 def pack_words(packed):
@@ -73,14 +83,26 @@ def layout_db_blocks(db_words, db_valid=None):
 def split_plan(q: int, m: int, sm_count: int):
     """(n_query_blocks, n_split, chunk_rows): the DB is cut into n_split
     contiguous chunks of chunk_rows rows (a multiple of the shared-memory
-    tile), enough that n_query_blocks · n_split blocks fill every SM
-    BLOCKS_PER_SM deep."""
+    tile, at most MAX_CHUNK_ROWS), enough that n_query_blocks · n_split
+    blocks fill every SM BLOCKS_PER_SM deep."""
     nqb = -(-q // QUERIES_PER_BLOCK)
     n_tiles = max(-(-m // ROWS_PER_TILE), 1)
     want = max(-(-sm_count * BLOCKS_PER_SM // nqb), 1)
-    chunk_tiles = max(-(-n_tiles // want), 1)
+    chunk_tiles = min(max(-(-n_tiles // want), 1),
+                      MAX_CHUNK_ROWS // ROWS_PER_TILE)
     n_split = -(-n_tiles // chunk_tiles)
     return nqb, n_split, chunk_tiles * ROWS_PER_TILE
+
+
+def kernel_info():
+    """Kernel 4's chunk kernel as compiled for the current card: tile
+    shape, shared memory, registers, spills and resident blocks per SM."""
+    info = (ctypes.c_int * 8)()
+    build.check_launch("apds_knn2_info",
+                       build.load_kernels().lib.apds_knn2_info(info))
+    keys = ("queries_per_block", "rows_per_tile", "threads", "smem_bytes",
+            "registers", "spill_bytes", "blocks_per_sm", "stages")
+    return dict(zip(keys, list(info)))
 
 
 def knn2_hamming_cuda(q_words, db_words, vpop):
@@ -112,7 +134,7 @@ def knn2_hamming_cuda(q_words, db_words, vpop):
     nqb, n_split, chunk = split_plan(q, m, sms)
     partial = torch.empty((n_split, 3, q), dtype=torch.int32, device=dev)
     lib = build.load_kernels().lib
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         err = lib.apds_knn2_hamming(
             build.ptr(q_words), build.ptr(db_words), build.ptr(vpop),
             build.ptr(partial), build.ptr(d0), build.ptr(d1), build.ptr(i0),

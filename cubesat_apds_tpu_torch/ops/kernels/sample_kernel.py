@@ -5,10 +5,10 @@ Both read the bf16 channel-packed level stack [L, Hmax, Wmax, 4]
 (Lt, Lx, Ly, 0) at integer sample points (iy, ix) [K, S] of each
 keypoint's level, clipped to that level's true (h, w), and return
 [K, S, 4] float32 — the gather of the JAX package's
-orientation.gather_sampler. The kernel stages each keypoint's window of
-±30 pixels around its centre (cx, cy) in shared memory.
+orientation.gather_sampler. The kernel is a direct gather: one thread
+per sample, texels read through the read-only cache.
 
-`sample_patches` dispatches on the stack's device: CPU tensors go to the
+`patch_sampler` dispatches on the stack's device: CPU tensors go to the
 twin, CUDA tensors to the kernel, anything else raises.
 """
 
@@ -34,9 +34,9 @@ def sample_patches_plain(packed, level_hw, lvl, iy, ix):
     return packed.reshape(L * H * W, C)[lin].to(torch.float32)
 
 
-def sample_patches_cuda(packed, level_hw, lvl, cx, cy, iy, ix):
+def sample_patches_cuda(packed, level_hw, lvl, iy, ix):
     """Kernel B on CUDA tensors: packed [L, Hmax, Wmax, 4] bf16;
-    level_hw [L, 2], lvl/cx/cy [K], iy/ix [K, S] int32 → [K, S, 4] f32."""
+    level_hw [L, 2], lvl [K], iy/ix [K, S] int32 → [K, S, 4] f32."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"sample_patches_cuda: stack on {dev}, not CUDA")
@@ -47,29 +47,29 @@ def sample_patches_cuda(packed, level_hw, lvl, cx, cy, iy, ix):
                          f"{tuple(packed.shape)}")
     L, Hmax, Wmax, _ = packed.shape
     K, S = iy.shape
-    want = {"level_hw": (L, 2), "lvl": (K,), "cx": (K,), "cy": (K,),
-            "iy": (K, S), "ix": (K, S)}
-    args = {"level_hw": level_hw, "lvl": lvl, "cx": cx, "cy": cy,
-            "iy": iy, "ix": ix}
-    for name, t in args.items():
-        if t.device != dev or t.dtype != torch.int32 \
-                or tuple(t.shape) != want[name] or not t.is_contiguous():
+    for name, t, want in (("level_hw", level_hw, (L, 2)), ("lvl", lvl, (K,)),
+                          ("iy", iy, (K, S)), ("ix", ix, (K, S))):
+        if t.dtype != torch.int32 or t.shape != want or t.device != dev \
+                or not t.is_contiguous():
             raise ValueError(
                 f"sample_patches_cuda: {name} must be a contiguous int32 "
-                f"{want[name]} tensor on {dev}, got {t.dtype} "
+                f"{want} tensor on {dev}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
     if not packed.is_contiguous() or packed.data_ptr() % 8:
         raise ValueError("sample_patches_cuda: stack must be contiguous "
                          "and 8-byte aligned")
+    if K * S >= 1 << 31:
+        raise ValueError(f"sample_patches_cuda: K·S = {K * S} samples, "
+                         "the kernel takes fewer than 2^31")
     out = torch.empty((K, S, CHANNELS), dtype=torch.float32, device=dev)
     if K == 0 or S == 0:
         return out
     lib = build.load_kernels().lib
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         err = lib.apds_sample_patches(
             build.ptr(packed), build.ptr(level_hw), build.ptr(lvl),
-            build.ptr(cx), build.ptr(cy), build.ptr(iy), build.ptr(ix),
-            build.ptr(out), K, S, L, Hmax, Wmax, build.stream_of(packed))
+            build.ptr(iy), build.ptr(ix), build.ptr(out), K, S, L, Hmax,
+            Wmax, build.stream_of(packed))
     build.check_launch("apds_sample_patches", err)
     sample_patches_cuda.launches += 1
     return out
@@ -78,17 +78,17 @@ def sample_patches_cuda(packed, level_hw, lvl, cx, cy, iy, ix):
 sample_patches_cuda.launches = 0
 
 
-def patch_sampler(packed, level_hw, lvl, cx, cy):
+def patch_sampler(packed, level_hw, lvl):
     """sample_fn(iy, ix) → [K, S, 4] f32 for keypoints on levels `lvl`
-    (already clipped to [0, L)) with integer level-coordinate centres
-    (cx, cy): kernel B for a CUDA stack, the plain twin for a CPU one."""
+    (already clipped to [0, L)): kernel B for a CUDA stack, the plain twin
+    for a CPU one."""
     dev = packed.device
     if dev.type == "cpu":
         return lambda iy, ix: sample_patches_plain(packed, level_hw, lvl,
                                                    iy, ix)
     if dev.type != "cuda":
         raise ValueError(f"patch_sampler: unsupported device {dev}")
-    i32 = [t.to(torch.int32).contiguous() for t in (level_hw, lvl, cx, cy)]
+    i32 = [t.to(torch.int32).contiguous() for t in (level_hw, lvl)]
 
     def sample_fn(iy, ix):
         return sample_patches_cuda(

@@ -44,19 +44,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     i = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError):
         tsk.sample_patches_cuda(stack, torch.zeros(1, 2, dtype=torch.int32),
-                                i, i, i, i[:, None], i[:, None])
+                                i, i[:, None], i[:, None])
 
 
 @pytest.mark.parametrize("q,m", [(2048, 1 << 20), (2048, 1_000_003),
-                                 (100, 3000), (5000, 300), (1, 0), (1, 1)])
+                                 (100, 3000), (5000, 300), (1, 0), (1, 1),
+                                 (1, 1_500_000_000)])
 def test_knn_split_plan_covers_the_db(q, m):
     """Kernel 4's launch plan: chunks are whole shared-memory tiles, cover
     the DB with no empty chunk, fit the grid's y limit, and give the H100's
-    132 SMs several blocks each wherever the DB has the tiles for it."""
+    132 SMs several blocks each wherever the DB has the tiles for it
+    (chunks stay within the kernel's 2^20-row index field); a block's
+    double-buffered tiles fit its shared memory."""
+    assert tmk.SMEM_BYTES == tmk.STAGES * tmk.ROWS_PER_TILE * (512 + 4) + 40
+    assert tmk.SMEM_BYTES <= tmk.SMEM_LIMIT
     nqb, n_split, chunk = tmk.split_plan(q, m, 132)
     assert nqb == -(-q // tmk.QUERIES_PER_BLOCK)
     assert chunk % tmk.ROWS_PER_TILE == 0 and n_split * chunk >= m
     assert (n_split - 1) * chunk < max(m, 1) and 1 <= n_split <= 65535
+    assert chunk <= tmk.MAX_CHUNK_ROWS
     n_tiles = -(-m // tmk.ROWS_PER_TILE)
     assert nqb * n_split >= min(132 * tmk.BLOCKS_PER_SM, nqb * n_tiles)
 
@@ -118,9 +124,9 @@ def test_fed_kernel_matches_twin_on_card(cuda_device, h, w, t_total):
 
 @pytest.mark.cuda
 def test_sample_kernel_matches_twin_on_card(cuda_device):
-    """Kernel B vs its plain twin on the card: bit-exact, with samples
-    beyond the staged window and out-of-range levels (both clamp them
-    into the stack)."""
+    """Kernel B vs its plain twin on the card: bit-exact, with samples up
+    to ±40 px from the keypoint (past the ±29 px of the AKAZE patterns)
+    and out-of-range levels (both clamp them into the stack)."""
     rng = np.random.default_rng(0)
     L, H, W, K, S = 4, 96, 80, 64, 441
     arr = rng.standard_normal((L, H, W, 4)).astype(np.float32)
@@ -131,10 +137,10 @@ def test_sample_kernel_matches_twin_on_card(cuda_device):
     lvl[:3] = [-1, L, L + 5]
     iy = (cy[:, None] + rng.integers(-40, 41, (K, S))).astype(np.int32)
     ix = (cx[:, None] + rng.integers(-40, 41, (K, S))).astype(np.int32)
-    t = [torch.from_numpy(a).to(cuda_device) for a in (hw, lvl, cx, cy, iy, ix)]
+    t = [torch.from_numpy(a).to(cuda_device) for a in (hw, lvl, iy, ix)]
     stack = torch.from_numpy(arr).to(torch.bfloat16).to(cuda_device)
     got = tsk.sample_patches_cuda(stack, *t)
-    ref = tsk.sample_patches_plain(stack, t[0], t[1].long(), t[4], t[5])
+    ref = tsk.sample_patches_plain(stack, t[0], t[1].long(), t[2], t[3])
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
 
@@ -144,8 +150,9 @@ def test_knn2_kernel_matches_twin_on_card(cuda_device):
     """Kernel 4 vs its plain twin on the card, bit-exact on d0, d1 and i0:
     a ragged DB with ~5% invalid rows, rows duplicated across the
     kernel's chunk edges and the twin's block edges (ties: the lowest
-    index wins, the duplicate stays second-best), and a query block that
-    is only partly filled."""
+    index wins, the duplicate stays second-best), query blocks that are
+    only partly filled, and DBs shorter than one shared-memory tile or
+    one row past it."""
     rng = np.random.default_rng(4)
     q_n, m, block = 300, 200_003, 65536
     db = rng.integers(0, 256, (m, 61), dtype=np.uint8)
@@ -169,3 +176,16 @@ def test_knn2_kernel_matches_twin_on_card(cuda_device):
         assert torch.equal(g, r), name
     i0 = got[2].cpu().numpy()
     assert list(i0[:4]) == [chunk - 1, 2 * chunk - 1, block - 1, m - 2]
+
+    for q_n, m in ((300, 5), (7, tmk.ROWS_PER_TILE + 1)):
+        db = torch.from_numpy(rng.integers(0, 256, (m, 61), dtype=np.uint8))
+        q = torch.from_numpy(rng.integers(0, 256, (q_n, 61), dtype=np.uint8))
+        q[1] = db[m - 1]                     # an exact hit on the last row
+        db, q = db.to(cuda_device), q.to(cuda_device)
+        got = tmk.knn2_hamming_cuda(tmk.pack_words(q),
+                                    *tmk.layout_db_blocks(tmk.pack_words(db)))
+        ref = tmatch.knn2_blockwise(tmatch.unpack_bits(q), db, block)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("d0", "d1", "i0"), got, ref):
+            assert torch.equal(g, r), (q_n, m, name)
+        assert int(got[2][1]) == m - 1 and float(got[0][1]) == 0.0
