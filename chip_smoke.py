@@ -6,8 +6,12 @@
 1. Builds the CUDA kernels from cubesat_apds_tpu_torch/csrc/ with nvcc and
    prints the card's name and power limit.
 2. Kernel phase: each kernel against its plain PyTorch twin on the card —
-   kernel A (FED cycle) at every main-path shape with its real τ schedule,
-   at 1024² and on a ragged 72×128 case (atol 1e-5); kernel B (patch
+   kernel A (FED cycle) bit-exact at every main-path level with its real τ
+   schedule, at 1024² and on a ragged 72×128 case, in its plan's form and
+   in the other forms (plain tiles, clusters of 8 and 16), one line per
+   level with the plan, eager and device time and byte bound, and the
+   device time of 15 one-pixel launches (the floor of a frame's 15
+   cycles); kernel B (patch
    sampler, a direct gather) at K=2048 with S=109 and S=441 (bit-exact),
    beside one index_select of the same samples; kernel 4 (Hamming kNN-2
    on int8 tensor cores) bit-exact on d0, d1 and i0 at Q=2048 ×
@@ -61,7 +65,6 @@ import traceback
 import numpy as np
 
 SEED = 42
-FED_ATOL = 1e-5
 # Published peaks of one H100 SXM (NVIDIA H100 datasheet) and the
 # POPC issue rate of compute capability 9.0 (CUDA C++ Programming Guide,
 # arithmetic instruction throughput: 16 results per clock per SM) at the
@@ -175,34 +178,67 @@ def kernel_phase(torch, dev):
     cases.append(("ragged72x128", 72, 128, fed_tau_by_process_time(3.0),
                   False))
 
-    log("kernel A (FED cycle) vs plain twin on the card:")
+    log("kernel A (FED cycle) vs plain twin on the card (bit-exact), per "
+        "case: the plan's form, cluster size, CTAs, then eager and device "
+        "time, the byte bound, and the device time of the other forms:")
     a_err, a_ms, a_dev_ms, a_plain_ms = 0.0, 0.0, 0.0, 0.0
     a_bytes, a_flops = 0, 0
     for name, h, w, taus, on_path in cases:
+        n = len(taus)
         L = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32)).to(dev)
         g = torch.from_numpy(rng.uniform(0.2, 1, (h, w)).astype(np.float32)).to(dev)
+        plan = diffusion.fed_plan(h, w, n)
+        info = diffusion.plan_info(plan)
         got = diffusion.fed_cycle_cuda(L, g, taus)
         ref = diffusion.fed_cycle(L, g, taus)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        exact = bool(torch.equal(got, ref))
+        check(torch.equal(got, ref), f"kernel A {name} bit-exact")
+        check(info["max_active_clusters"] >= 1,
+              f"kernel A {name}: the card holds a cluster of {plan.cluster}")
         ms = cuda_ms(torch, lambda: diffusion.fed_cycle_cuda(L, g, taus))
         dms = graph_ms(torch, lambda: diffusion.fed_cycle_cuda(L, g, taus))
         pms = cuda_ms(torch, lambda: diffusion.fed_cycle(L, g, taus))
-        log(f"  {name:>13} {h}x{w} n={len(taus):2d}: max_abs_err={err:.3e} "
-            f"bit_exact={exact} kernel={ms:.4f} ms (device {dms:.4f}) "
-            f"plain={pms:.4f} ms")
-        check(np.isfinite(err) and err <= FED_ATOL,
-              f"kernel A {name} within {FED_ATOL}")
+        bound_us = 12 * h * w / HBM_BYTES_PER_S * 1e6
+        alts = []
+        for form, c in (("tiles", None), ("cluster", 8), ("cluster", 16)):
+            try:
+                alt = diffusion.fed_plan(h, w, n, form=form, cluster=c)
+            except ValueError:
+                continue
+            if alt == plan:
+                continue
+            got = diffusion.fed_cycle_cuda(L, g, taus, plan=alt)
+            check(torch.equal(got, ref),
+                  f"kernel A {name} bit-exact as {form} {alt.cluster}")
+            alt_ms = graph_ms(torch, lambda: diffusion.fed_cycle_cuda(
+                L, g, taus, plan=alt))
+            alts.append(f"{form} x{alt.cluster} {alt.tile_h}x{alt.tile_w} "
+                        f"{alt.ctas} CTAs {alt_ms * 1e3:.2f} us")
+        log(f"  {name:>13} {h}x{w} n={n:2d}: {plan.form} cluster={plan.cluster} "
+            f"tile={plan.tile_h}x{plan.tile_w} ctas={plan.ctas} "
+            f"threads={plan.threads} cells/thread={plan.cells_per_thread} "
+            f"smem={plan.smem} B regs={info['registers']} "
+            f"spill={info['spill_bytes']} B max_active_clusters="
+            f"{info['max_active_clusters']}; eager={ms * 1e3:.2f} us "
+            f"device={dms * 1e3:.2f} us bound={bound_us:.3f} us "
+            f"plain={pms:.4f} ms max_abs_err={err:.1e}; other forms "
+            f"(device): {'; '.join(alts) or 'none'}")
         a_err = max(a_err, err)
         if on_path:
             a_ms += ms
             a_dev_ms += dms
             a_plain_ms += pms
-            # L and g read once, the result written once; 17 flops per
-            # pixel per explicit step (fed_cycle.cu).
+            # L and g read once, the result written once; per pixel 4
+            # conductance sums, then 13 flops per explicit step.
             a_bytes += 12 * h * w
-            a_flops += 17 * h * w * len(taus)
+            a_flops += (4 + 13 * n) * h * w
+    one = torch.ones((1, 1), dtype=torch.float32, device=dev)
+    floor_ms = 15 * graph_ms(torch, lambda: diffusion.fed_cycle_cuda(
+        one, one, np.ones(1, np.float32)), reps=15)
+    log(f"kernel A, the frame's 15 cycles: eager {a_ms:.4f} ms, device "
+        f"{a_dev_ms:.4f} ms; launch floor (15 one-pixel launches from a "
+        f"CUDA graph) {floor_ms:.4f} ms")
 
     log("kernel B (patch sampler) vs plain twin on the card:")
     L, H, W, K = 16, 512, 512, 2048
@@ -273,7 +309,8 @@ def kernel_phase(torch, dev):
          "source": "cubesat_apds_tpu_torch/csrc/fed_cycle.cu",
          "replaces": "cubesat_apds_tpu/ops/pallas/diffusion.py:46",
          "max_abs_err": a_err, "ms": a_ms, "device_ms": a_dev_ms,
-         "plain_ms": a_plain_ms, "bound_ms": a_bound,
+         "launch_floor_ms": floor_ms, "plain_ms": a_plain_ms,
+         "bound_ms": a_bound,
          "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
                       >= a_flops / FP32_FLOPS else "operations"),
          "library_ms": None},

@@ -31,9 +31,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name → argtypes. Every entry returns cudaError_t as int.
 _SIGNATURES = {
-    # L, g, out, H, W, tile_h, tile_w, half_taus (host), n_steps,
-    # smem_bytes, stream
-    "apds_fed_cycle": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P),
+    # L, g, out, H, W, tile_h, tile_w, cluster, threads, cells per thread,
+    # half_taus (host), n_steps, smem_bytes, stream
+    "apds_fed_cycle": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I,
+                       _P),
+    # cluster, threads, cells per thread, smem_bytes, info (int32 [3], host)
+    "apds_fed_cycle_info": (_I, _I, _I, _I, _P),
     # stack, level_hw, lvl, iy, ix, out, K, S, L, Hmax, Wmax, stream
     "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q_words, db_words, vpop, partial, d0, d1, i0, Q, M, n_split, chunk,

@@ -8,12 +8,14 @@ without jax (which tests/conftest.py imports):
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
 
+import itertools
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from cubesat_apds_tpu_torch.core.config import AkazeConfig
 from cubesat_apds_tpu_torch.ops.features import scale_space as tss
 from cubesat_apds_tpu_torch.ops import match as tmatch
 from cubesat_apds_tpu_torch.ops.kernels import diffusion as tdiff
@@ -21,17 +23,72 @@ from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
 from cubesat_apds_tpu_torch.ops.kernels import sample_kernel as tsk
 
 
+def _main_path_levels():
+    """(h, w, τ schedule) of each FED level 1–15 of the main path's 512²
+    frame with the default AkazeConfig."""
+    cfg = AkazeConfig()
+    meta = tss.evolution_metadata(cfg)
+    return [(512 >> meta[i].octave, 512 >> meta[i].octave,
+             tss.fed_tau_by_process_time(meta[i].etime - meta[i - 1].etime,
+                                         cfg.fed_tau_max))
+            for i in range(1, len(meta))]
+
+
+_LEVELS = _main_path_levels()
+
+
 @pytest.mark.parametrize("h,w,n", [(512, 512, 3), (256, 256, 7),
                                    (128, 128, 14), (64, 64, 29),
-                                   (1024, 1024, 9), (72, 128, 6)])
+                                   (1024, 1024, 9), (72, 128, 6)]
+                         + [(h, w, len(t)) for h, w, t in _LEVELS]
+                         + [(37, 53, 5)])
 def test_fed_tile_plan_fits_and_covers(h, w, n):
-    """Kernel A's launch plan at every main-path shape (plus the strip
-    kernel's domain and a ragged case): the staged region of the largest
-    tile fits an H100 block's shared memory and tiles cover the image."""
-    th, tw, smem = tdiff.tile_plan(h, w, n)
-    assert smem <= tdiff.SMEM_LIMIT
-    assert smem == 12 * min(h, th + 2 * n) * min(w, tw + 2 * n)
-    assert math.ceil(h / th) * th >= h and math.ceil(w / tw) * tw >= w
+    """Kernel A's launch plan at every main-path level (plus the strip
+    kernel's 1024² domain and ragged cases): a CTA's ping-pong buffers fit
+    an H100 block's shared memory and its cells its threads, the tiles
+    cover the image and the strips each tile's staged rows, the cluster
+    is at most 16 (past the portable 8 only by the kernel's attribute),
+    and the small levels (64², 128², 256²) run as clusters."""
+    p = tdiff.fed_plan(h, w, n)
+    rows, cols = min(h, p.tile_h + 2 * n), min(w, p.tile_w + 2 * n)
+    # in a cluster: two ghost rows (the neighbours' edge rows) per buffer
+    # and two 8-byte mbarriers
+    extra = 8 * 2 * cols + 16 if p.cluster > 1 else 0
+    assert p.smem <= tdiff.SMEM_LIMIT
+    assert p.smem == 8 * p.strip_rows * cols + extra
+    assert p.cells == p.strip_rows * cols
+    # a thread owns up to cells_per_thread cells of one column
+    assert cols * math.ceil(p.strip_rows / p.cells_per_thread) <= p.threads
+    assert p.threads % 32 == 0 and p.threads <= tdiff.MAX_THREADS
+    assert p.cells_per_thread in tdiff.CELLS_PER_THREAD
+    assert p.tiles == math.ceil(h / p.tile_h) * math.ceil(w / p.tile_w)
+    assert p.ctas == p.tiles * p.cluster
+    assert p.cluster * p.strip_rows >= rows
+    assert (p.cluster - 1) * p.strip_rows < rows     # no CTA left empty
+    assert p.cluster in (1, 2, 4, 8, 16)
+    assert (p.form == "tiles") == (p.cluster == 1)
+    if h <= 256 and w <= 256:
+        assert p.form == "cluster"
+    if h == w == 512 and n <= 4 or h == w == 1024:
+        assert p.form == "tiles" and p.ctas >= tdiff.NUM_SMS
+    else:
+        assert p.ctas <= tdiff.NUM_SMS                # one wave
+
+
+def test_fed_plan_covers_every_shape_the_halo_tiles_did():
+    """Every (h, w, n) for which the earlier plain halo-tile plan found a
+    tile (8×8 outputs at least, L, L and g staged: 12 B a cell in 227 KB)
+    still gets a plan whose CTAs fit, up to n = 65, where that plan ended
+    at large sizes."""
+    sizes = (1, 3, 37, 64, 72, 128, 333, 1024, 4000)
+    for h, w, n in itertools.product(sizes, sizes, (1, 3, 9, 29, 50, 65)):
+        if 12 * min(h, 8 + 2 * n) * min(w, 8 + 2 * n) > tdiff.SMEM_LIMIT:
+            continue
+        p = tdiff.fed_plan(h, w, n)
+        rows, cols = min(h, p.tile_h + 2 * n), min(w, p.tile_w + 2 * n)
+        assert p.cluster * p.strip_rows >= rows
+        assert cols * math.ceil(p.strip_rows / p.cells_per_thread) <= p.threads
+        assert p.threads <= tdiff.MAX_THREADS and p.smem <= tdiff.SMEM_LIMIT
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -106,20 +163,30 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,t_total", [(512, 512, 0.5), (64, 64, 60.0),
-                                         (72, 128, 3.0)])
-def test_fed_kernel_matches_twin_on_card(cuda_device, h, w, t_total):
-    """Kernel A vs its plain twin on the card, atol 1e-5 (the kernel
-    forbids FMA contraction, so it is expected to be bit-exact)."""
+@pytest.mark.parametrize("h,w,level", [(512, 512, 0.5), (64, 64, 60.0),
+                                       (72, 128, 3.0), (64, 64, 15),
+                                       (128, 128, 11), (256, 256, 7),
+                                       (101, 77, 6.0), (1, 1, 1.0)])
+def test_fed_kernel_matches_twin_on_card(cuda_device, h, w, level):
+    """Kernel A vs its plain twin on the card, bit for bit (the kernel
+    forbids FMA contraction and keeps the twin's term order): the main
+    path's longest cycles at 64² (level 15, n=29), 128² (level 11, n=14)
+    and 256² (level 7, n=7) with their real τ schedules; a 101×77 image
+    whose rows no cluster size divides; a single pixel; and diffusion
+    times (floats) through fed_tau_by_process_time at 512², 64² and
+    72×128."""
     rng = np.random.default_rng(0)
     L = torch.from_numpy(rng.uniform(0, 1, (h, w)).astype(np.float32))
     g = torch.from_numpy(rng.uniform(0.2, 1, (h, w)).astype(np.float32))
-    taus = tss.fed_tau_by_process_time(t_total)
+    if isinstance(level, int):
+        assert _LEVELS[level - 1][:2] == (h, w)
+        taus = _LEVELS[level - 1][2]
+    else:
+        taus = tss.fed_tau_by_process_time(level)
     ref = tdiff.fed_cycle(L.to(cuda_device), g.to(cuda_device), taus)
     got = tdiff.fed_cycle_cuda(L.to(cuda_device), g.to(cuda_device), taus)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               atol=1e-5)
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.cuda
