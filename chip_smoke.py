@@ -40,17 +40,37 @@
    through Localizer.localize: one kNN-2 launch per frame (plus 15
    kernel-A and 2 kernel-B), (13, 7) within 1 px, matches identical to the
    kernel="scan" twin on the same features, and the warmed step time.
+   (The kernel phase also runs kernels A and B on a batch of 8 frames:
+   kernel A once per level for the batch, every main-path level, with its
+   plan and device time per image; kernel B on 8 stacks folded into its
+   stack axis; both bit-exact per image against the twins.)
 5. Pruned phase: the same DB with the first 32,768 rows as the coarse DB
    and a window capacity of 16,384, through localize_frame_pruned: coarse
    fix ok, no overflow, (13, 7) within 1 px, and ≥ 0.9 of the big-DB
    step's homography inliers (by global row id) kept; the warmed step time.
+6. Stream phase: from seed 42, the 10k scene written as an npz
+   FeatureStore and the 1,048,576-row scene as a binary store (LoD 1 = its
+   first 32,768 rows), both with a geotransform and an elevation raster;
+   loaded through open_store → load_device_db / load_pruned_device_db
+   (rows equal to those written, ECEF world points); then 60 frames (a
+   pool of 8 seeded shifted 512² uint8 frames, cycled) through
+   StreamingLocalizer: 10k at batch 1 and 8, 1M full DB at batch 8, 1M
+   pruned at batch 1 and 8. Every frame must recover its shift within
+   1 px, its features and matches must equal Localizer.localize's
+   (localize_frame_pruned's when pruned) on the same frame and DB, and
+   its packed outputs too (or H within 0.01 px at the corners, equal ok
+   flags and inlier Jaccard ≥ 0.95). Kernel A launches 15 times and
+   kernel B twice per batch, kernel 4 once per frame on the full 1M DB.
+   Prints frames/s, ms per frame, latency p50/p95, the stage times,
+   fallback frames and launches per batch of each run.
 
 Prints a {"kernels": [...]} JSON line, then as its LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check exits non-zero without that line. Needs a CUDA build of
 PyTorch, nvcc and a GPU; imports nothing of JAX. --profile DIR writes a
 torch.profiler table and Chrome trace of one warmed step of each path
-(slice, big DB, pruned) to DIR, with each step's device-busy time.
+(slice, big DB, pruned, stream at batch 1 and 8) to DIR, with each step's
+device-busy time (per frame for the batch).
 """
 
 from __future__ import annotations
@@ -75,6 +95,8 @@ INT8_OPS = 1.979e15
 POPC_PER_CLOCK_PER_SM = 16
 BOOST_HZ = 1.98e9
 BIG_DB_ROWS = 1 << 20
+STREAM_BATCH = 8
+STREAM_FRAMES = 60
 COARSE_ROWS = 32768
 WINDOW_CAPACITY = 16384
 CONTAINMENT_MIN = 0.9
@@ -321,6 +343,74 @@ def kernel_phase(torch, dev):
          "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": "bytes",
          "library_ms": b_lib_ms, "library_device_ms": b_lib_dev_ms},
     ]
+
+
+def batch_kernel_phase(torch, dev, batch=STREAM_BATCH):
+    """Kernels A and B on a frame batch, as detect_and_compute_batch
+    launches them: kernel A once per level for B images (gridDim.z = B),
+    bit-exact per image against the twin, with its plan and device time
+    per image; kernel B once on B stacks folded into its stack axis,
+    bit-exact per stack. Returns each kernel's device ms per frame."""
+    from cubesat_apds_tpu_torch.core.config import AkazeConfig
+    from cubesat_apds_tpu_torch.ops.features.scale_space import (
+        evolution_metadata, fed_tau_by_process_time)
+    from cubesat_apds_tpu_torch.ops.kernels import diffusion, sample_kernel
+
+    rng = np.random.default_rng(SEED + 2)
+    cfg = AkazeConfig()
+    meta = evolution_metadata(cfg)
+    log(f"kernel A on a batch of {batch} images (one launch per level), "
+        f"bit-exact per image against the twin; device us per image:")
+    a_us = 0.0
+    for i in range(1, len(meta)):
+        n = 512 >> meta[i].octave
+        taus = fed_tau_by_process_time(meta[i].etime - meta[i - 1].etime,
+                                       cfg.fed_tau_max)
+        L = torch.from_numpy(rng.uniform(0, 1, (batch, n, n)).astype(
+            np.float32)).to(dev)
+        g = torch.from_numpy(rng.uniform(0.2, 1, (batch, n, n)).astype(
+            np.float32)).to(dev)
+        plan = diffusion.fed_plan(n, n, len(taus), batch=batch)
+        got = diffusion.fed_cycle_cuda(L, g, taus)
+        same = all(torch.equal(got[b], diffusion.fed_cycle(L[b], g[b], taus))
+                   for b in range(batch))
+        check(same, f"kernel A level {i} at B={batch} bit-exact per image")
+        us = graph_ms(torch, lambda: diffusion.fed_cycle_cuda(L, g, taus)) \
+            * 1e3 / batch
+        a_us += us
+        log(f"  level{i:>2} {n}x{n} n={len(taus):2d}: {plan.form} "
+            f"cluster={plan.cluster} tile={plan.tile_h}x{plan.tile_w} "
+            f"ctas={plan.ctas} cells/thread={plan.cells_per_thread}; "
+            f"device {us:.3f} us per image")
+    log(f"kernel A, a frame's 15 cycles at B={batch}: {a_us / 1e3:.4f} ms "
+        f"of device time per frame")
+
+    L, H, W, K = 16, 512, 512, 2048
+    stacks = torch.from_numpy(rng.standard_normal(
+        (batch, L, H, W, 4)).astype(np.float32)).to(dev)
+    stacks[..., 3] = 0
+    stacks = stacks.to(torch.bfloat16)
+    level_hw = torch.tensor([[H >> (i // 4), W >> (i // 4)] for i in range(L)],
+                            dtype=torch.int32, device=dev)
+    lvl = torch.from_numpy(rng.integers(0, L, (batch, K))).to(dev)
+    b_ms = 0.0
+    for S in (109, 441):
+        iy = torch.from_numpy(rng.integers(0, H, (batch * K, S)).astype(
+            np.int32)).to(dev)
+        ix = torch.from_numpy(rng.integers(0, W, (batch * K, S)).astype(
+            np.int32)).to(dev)
+        fn = sample_kernel.patch_sampler(stacks, level_hw, lvl)
+        got = fn(iy, ix)
+        same = all(torch.equal(
+            got[b * K:(b + 1) * K], sample_kernel.sample_patches_plain(
+                stacks[b], level_hw, lvl[b], iy[b * K:(b + 1) * K],
+                ix[b * K:(b + 1) * K])) for b in range(batch))
+        check(same, f"kernel B on {batch} stacks, S={S}, bit-exact per stack")
+        ms = graph_ms(torch, lambda: fn(iy, ix)) / batch
+        b_ms += ms
+        log(f"  kernel B, B={batch} x K={K} x S={S} in one launch: device "
+            f"{ms * 1e3:.3f} us per frame")
+    return a_us / 1e3, b_ms
 
 
 def knn_phase(torch, dev, Q=2048, m_main=BIG_DB_ROWS, m_rag=1_000_003):
@@ -811,7 +901,303 @@ def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
     return launches, med
 
 
-def profile_step(torch, step, out_dir, name):
+# ---- the stream phase: stored DBs served as a stream -----------------------
+
+MOSAIC_GT = [10.0, 1e-5, 0.0, 56.0, 0.0, -1e-5]   # mosaic px → lon/lat (deg)
+
+
+def _elevation(rng, extent):
+    """A seeded 16×16 elevation raster (100–120 m) over [0, extent)² px."""
+    step = extent * 1e-5 / 16
+    return (rng.uniform(100.0, 120.0, (16, 16)).astype(np.float32),
+            [10.0, step, 0.0, 56.0, 0.0, -step])
+
+
+def _store_rows(store, image_id, desc, xy):
+    """Rows with responses falling with the row index, so the store's
+    response-ranked LoD query returns them in the order written."""
+    n = len(desc)
+    store.add_keypoints(image_id, xy[:, 0], xy[:, 1],
+                        np.full(n, 4.8, np.float32), np.zeros(n, np.float32),
+                        np.linspace(1.0, 0.5, n, dtype=np.float32),
+                        np.zeros(n, np.int32), np.zeros(n, np.int32), desc)
+
+
+def write_stream_stores(torch, dev, root, base_u8, config):
+    """The two stores of the stream phase, from seed 42 with numpy: the
+    10k scene as an npz FeatureStore and the 1,048,576-row scene as a
+    binary store (LoD 0; LoD 1 = its first 32,768 rows). Both rows start
+    with the port's features of the frame rolled by (7, 13); both stores
+    have a geotransform and an elevation raster. Returns their paths and
+    the LoD-0 arrays written."""
+    import os
+
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.store.binary_store import write_binary_store
+    from cubesat_apds_tpu_torch.store.feature_store import FeatureStore
+
+    rng = np.random.default_rng(SEED)
+    rolled = torch.from_numpy(np.roll(base_u8, (7, 13), axis=(0, 1)))
+    f = detect_and_compute(rolled.to(dev).float() / 255.0, config.akaze)
+    v = f.keypoints.valid.cpu().numpy()
+    desc = f.descriptors.cpu().numpy()[v]
+    xy = f.keypoints.xy.cpu().numpy()[v]
+
+    m = 10240                         # bench.py's DB: tiled and perturbed
+    reps = m // len(desc) + 1
+    d10 = np.tile(desc, (reps, 1))[:m]
+    flip = rng.integers(0, 256, d10.shape, dtype=np.uint8)
+    flip[:len(desc)] = 0
+    d10 = d10 ^ (flip & rng.integers(0, 2, d10.shape, dtype=np.uint8) * 255)
+    x10 = np.tile(xy, (reps, 1))[:m].astype(np.float32)
+    s10 = FeatureStore()
+    _store_rows(s10, s10.create_image(0, 0, 512, 512, 0), d10, x10)
+    s10.set_geotransform(1, MOSAIC_GT)
+    s10.set_elevation(*_elevation(rng, 512))
+    s10.descriptor_mode = config.akaze.descriptor_tag
+    p10 = os.path.join(root, "store10k")
+    s10.save(p10)
+
+    mb = BIG_DB_ROWS                  # bench_localize_bigdb.py's layout
+    dbig = rng.integers(0, 256, (mb, 61), dtype=np.uint8)
+    xbig = rng.uniform(0.0, 8192.0, (mb, 2)).astype(np.float32)
+    dbig[:len(desc)] = desc
+    xbig[:len(desc)] = xy
+    sb = FeatureStore()
+    _store_rows(sb, sb.create_image(0, 0, 8192, 8192, 0), dbig, xbig)
+    _store_rows(sb, sb.create_image(0, 0, 8192, 8192, 1),
+                dbig[:COARSE_ROWS], xbig[:COARSE_ROWS])
+    sb.set_geotransform(1, MOSAIC_GT)
+    sb.set_elevation(*_elevation(rng, 8192))
+    sb.descriptor_mode = config.akaze.descriptor_tag
+    pbig = os.path.join(root, "store1m")
+    write_binary_store(sb, pbig)
+    return {"10k": (p10, d10, x10), "1M": (pbig, dbig, xbig)}
+
+
+def _check_loaded(torch, db, desc, xy, label):
+    n = len(desc)
+    same = (torch.equal(db.descriptors[:n].cpu(), torch.from_numpy(desc))
+            and torch.equal(db.xy[:n].cpu(), torch.from_numpy(xy))
+            and bool(db.valid[:n].all()) and not bool(db.valid[n:].any()))
+    check(same and db.has_world and db.world_frame == "ecef",
+          f"{label}: descriptors, xy and valid equal the {n} rows written; "
+          f"ECEF world points")
+
+
+def _corner_err(Ha, Hb, n=512):
+    c = np.array([[0, 0, 1], [n, 0, 1], [0, n, 1], [n, n, 1]], np.float64)
+    pa, pb = c @ np.asarray(Ha, np.float64).T, c @ np.asarray(Hb, np.float64).T
+    return float(np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max())
+
+
+def _agree(torch, packed, ref_packed, got, ref):
+    """A stream frame against its reference: equal packed vectors, or H
+    within 0.01 px at the frame's corners, equal ok flags and homography-
+    inlier Jaccard ≥ 0.95 (the differing fields are returned)."""
+    if np.array_equal(packed, ref_packed):
+        return True, ""
+    diff = [i for i in range(len(packed)) if packed[i] != ref_packed[i]]
+    ok = (_corner_err(packed[:9].reshape(3, 3), ref_packed[:9].reshape(3, 3))
+          <= 0.01 and packed[9] == ref_packed[9]
+          and packed[19] == ref_packed[19]
+          and inlier_jaccard(inlier_pairs(got), inlier_pairs(ref)) >= 0.95)
+    return ok, f"fields {diff}"
+
+
+def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
+    """One timed stream of `frames` through a fresh StreamingLocalizer,
+    with the launch counters zeroed just before and read just after, the
+    back half's per-frame features and results recorded (device tensors,
+    no copies), then every frame checked against its reference."""
+    from cubesat_apds_tpu_torch.pipelines import stream as stream_mod
+
+    s = make_stream()
+    b = s.batch
+    list(s.run(frames[:b]))                        # warm-up, outside
+    torch.cuda.synchronize()
+    s.times = type(s.times)()
+    record = []
+    name = "_pruned_back_half" if kind == "pruned" else \
+        "localize_from_features"
+    orig = getattr(stream_mod, name)
+
+    def recorded(feats, *a, **k):
+        out = orig(feats, *a, **k)
+        record.append((feats, out.result if kind == "pruned" else out))
+        return out
+
+    setattr(stream_mod, name, recorded)
+    try:
+        _reset_launches()
+        t0 = time.perf_counter()
+        results = list(s.run(frames))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        setattr(stream_mod, name, orig)
+    steps = -(-len(frames) // b)
+    check([r.frame_id for r in results] == list(range(len(frames))),
+          f"{label}: {len(frames)} frames back, in order")
+    check(launches["fed_cycle"] == 15 * (steps + s.fallback_frames)
+          and launches["sample_patches"] == 2 * (steps + s.fallback_frames),
+          f"{label}: 15 kernel-A and 2 kernel-B launches per batch of "
+          f"{b} ({launches['fed_cycle']} and {launches['sample_patches']} "
+          f"for {steps} batches, {s.fallback_frames} fallback frames)")
+    if kind == "full1M":
+        check(launches["knn2_hamming"] == steps * b + s.fallback_frames,
+              f"{label}: one kNN-2 launch per frame served "
+              f"({launches['knn2_hamming']} for {steps} x {b} rows)")
+    bad = []
+    for i, r in enumerate(results):
+        dx, dy = shifts[i % len(shifts)]
+        H = r.homography
+        if not (r.homography_ok and abs(H[0, 2] - (13 + dx)) < 1.0
+                and abs(H[1, 2] - (7 + dy)) < 1.0):
+            bad.append(f"frame {i}: shift ({H[0, 2]:.3f}, {H[1, 2]:.3f}) "
+                       f"for ({13 + dx}, {7 + dy})")
+            continue
+        feats, got = record[i]
+        ref_feats, ref, ref_packed = refs[i % len(shifts)]
+        same_feats = torch.equal(feats.descriptors, ref_feats.descriptors) \
+            and all(torch.equal(getattr(feats.keypoints, k),
+                                getattr(ref_feats.keypoints, k))
+                    for k in ("xy", "size", "angle", "response", "octave",
+                              "class_id", "valid"))
+        same_matches = all(torch.equal(getattr(got.matches, k),
+                                       getattr(ref.matches, k))
+                           for k in ("query_idx", "train_idx", "distance",
+                                     "valid"))
+        packed = np.concatenate([H.reshape(-1), [
+            r.homography_ok, r.num_inliers, r.num_matches, r.num_keypoints],
+            r.rvec, r.tvec, [r.pose_ok, r.pose_num_inliers]]).astype(
+                np.float32)
+        agree, why = _agree(torch, packed, ref_packed, got, ref)
+        if not (same_feats and same_matches and agree):
+            bad.append(f"frame {i}: features equal {same_feats}, matches "
+                       f"equal {same_matches}, packed agrees {agree} {why}")
+        elif why:
+            log(f"  {label} frame {i}: packed differs in {why}, within the "
+                f"stated tolerance")
+    lat = sorted(r.latency_s for r in results)
+    fps = len(results) / wall
+    log(f"{label}: {len(results)} frames in {wall:.3f} s = {fps:.2f} "
+        f"frames/s, {wall / len(results) * 1e3:.2f} ms per frame; latency "
+        f"p50 {lat[len(lat) // 2] * 1e3:.2f} ms, p95 "
+        f"{lat[int(0.95 * len(lat)) - 1] * 1e3:.2f} ms; fallback_frames "
+        f"{s.fallback_frames}; launches per batch: "
+        f"{ {k: v / steps for k, v in launches.items()} }")
+    log("\n".join("    " + ln for ln in s.times.report().splitlines()))
+    check(not bad, f"{label}: every frame recovers its shift within 1 px "
+          f"and agrees with its reference" + ("" if not bad else
+                                              ": " + "; ".join(bad[:5])))
+    return {"frames_per_s": fps, "ms_per_frame": wall / len(results) * 1e3,
+            "launches_per_batch": {k: v / steps for k, v in launches.items()},
+            "fallback_frames": s.fallback_frames}
+
+
+def stream_phase(torch, dev, profile_dir):
+    """bench_stream.py's scene from stores on disk: 60 frames (a pool of 8
+    seeded shifted 512² uint8 frames, cycled; capacity 2048) through
+    StreamingLocalizer from the 10k npz store at batch 1 and 8, the
+    1,048,576-row binary store at batch 8 (full DB, kernel 4 per frame)
+    and pruned at batch 1 and 8."""
+    import tempfile
+
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        Localizer, load_device_db, load_pruned_device_db,
+        localize_frame_pruned)
+    from cubesat_apds_tpu_torch.pipelines.stream import (
+        StreamingLocalizer, _pack_outputs)
+    from cubesat_apds_tpu_torch.store import open_store
+
+    config = serving_config()
+    camera = CameraModel.ideal(500.0, 500.0, 256.0, 256.0)
+    rng = np.random.default_rng(SEED)
+    base_u8 = (make_frame(rng) * 255).astype(np.uint8)
+    shifts = [tuple(int(v) for v in d)
+              for d in np.random.default_rng(SEED + 3).integers(-4, 5, (8, 2))]
+    pool = [np.roll(base_u8, (-dy, -dx), axis=(0, 1)) for dx, dy in shifts]
+    frames = [pool[i % len(pool)] for i in range(STREAM_FRAMES)]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        written = write_stream_stores(torch, dev, root, base_u8, config)
+        log(f"stream stores written in {time.perf_counter() - t0:.2f} s: "
+            f"10k npz FeatureStore, {BIG_DB_ROWS}-row binary store (+ "
+            f"{COARSE_ROWS} rows at LoD 1)")
+        t0 = time.perf_counter()
+        p10, d10, x10 = written["10k"]
+        db10 = load_device_db(open_store(p10), 0, match_config=config.match,
+                              device=dev)
+        pbig, dbig, xbig = written["1M"]
+        big_store = open_store(pbig)
+        dbbig = load_device_db(big_store, 0, match_config=config.match,
+                               device=dev, limit=BIG_DB_ROWS)
+        pdb = load_pruned_device_db(big_store, 0, 1, WINDOW_CAPACITY,
+                                    match_config=config.match, device=dev,
+                                    limit=BIG_DB_ROWS)
+        torch.cuda.synchronize()
+        log(f"stores loaded onto the card in {time.perf_counter() - t0:.2f} s")
+        _check_loaded(torch, db10, d10, x10, "10k store")
+        _check_loaded(torch, dbbig, dbig, xbig, "1M store")
+        check(dbbig.match_layout is not None and pdb.coarse.descriptors.shape[0]
+              == COARSE_ROWS, "1M store: kNN-2 layout made; coarse DB = "
+              "LoD 1's 32,768 rows")
+
+    def references(kind, db):
+        """Each pool frame's features and result from one call of its own,
+        with the median host-clock time of those calls (first excluded)."""
+        refs, secs = [], []
+        loc = None if kind == "pruned" else Localizer(db, camera, config,
+                                                      device=dev)
+        for f in pool:
+            ft = torch.from_numpy(f).to(dev).float() / 255.0
+            feats = detect_and_compute(ft, config.akaze)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "pruned":
+                res = localize_frame_pruned(ft, db, camera, config,
+                                            solve_pose=True).result
+            else:
+                res = loc.localize(ft)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            packed = _pack_outputs(res.homography, res.num_matches,
+                                   res.num_keypoints, res.pose)
+            refs.append((feats, res, packed.cpu().numpy()))
+        log(f"{kind} references, one call per frame outside the stream: "
+            f"median {np.median(secs[1:]) * 1e3:.2f} ms per frame")
+        return refs
+
+    runs = [("10k store, batch 1", db10, 1, "full"),
+            ("10k store, batch 8", db10, STREAM_BATCH, "full"),
+            ("1M store, full DB, batch 8", dbbig, STREAM_BATCH, "full1M"),
+            ("1M store, pruned, batch 1", pdb, 1, "pruned"),
+            ("1M store, pruned, batch 8", pdb, STREAM_BATCH, "pruned")]
+    refs = {}
+    for label, db, b, kind in runs:
+        if id(db) not in refs:
+            refs[id(db)] = references(kind, db)
+        out[label] = stream_run(
+            torch, label,
+            lambda: StreamingLocalizer(db, camera, config, solve_pose=True,
+                                       prefetch=2 * b, batch=b, device=dev),
+            frames, shifts, refs[id(db)], kind)
+    if profile_dir:
+        for b in (1, STREAM_BATCH):
+            s = StreamingLocalizer(db10, camera, config, batch=b, device=dev)
+            x = torch.stack([torch.from_numpy(f) for f in pool[:b]]).to(dev)
+            s._step(x)                                      # warm-up
+            profile_step(torch, lambda: s._step(x), profile_dir,
+                         f"stream_b{b}", frames_per_step=b)
+    return out
+
+
+def profile_step(torch, step, out_dir, name, frames_per_step=1):
     """torch.profiler over one warmed step: a table by kernel and a Chrome
     trace in out_dir, and the step's device-busy time and kernel count."""
     import os
@@ -835,7 +1221,11 @@ def profile_step(torch, step, out_dir, name):
     log(f"profile of one warmed {name} step written to {out_dir}: "
         f"{len(kernels)} device kernels, {busy_ms:.3f} ms device-busy of "
         f"{wall_ms:.2f} ms under the profiler "
-        f"(idle share {1.0 - busy_ms / wall_ms:.4f})")
+        f"(idle share {1.0 - busy_ms / wall_ms:.4f})"
+        + (f"; per frame of {frames_per_step}: "
+           f"{len(kernels) / frames_per_step:.1f} kernels, "
+           f"{busy_ms / frames_per_step:.3f} ms device-busy"
+           if frames_per_step > 1 else ""))
 
 
 def main(argv=None):
@@ -876,17 +1266,27 @@ def main(argv=None):
             print(lib.build_log, file=sys.stderr)
 
         kernels = kernel_phase(torch, dev) + [knn_phase(torch, dev)]
+        a_batch_ms, b_batch_ms = batch_kernel_phase(torch, dev)
         launches, step_s = slice_phase(torch, dev, args.profile)
         big_launches, big_s, loc, big_res, frame_t = bigdb_phase(
             torch, dev, args.profile)
         _, pruned_s = pruned_phase(torch, dev, loc, big_res, frame_t,
                                    args.profile)
+        del loc, big_res
+        streams = stream_phase(torch, dev, args.profile)
         launches = dict(launches, knn2_hamming=big_launches["knn2_hamming"])
         for k in kernels:
             k["launches"] = launches[k["name"]]
+            k["stream_launches_per_batch"] = {
+                label: r["launches_per_batch"][k["name"]]
+                for label, r in streams.items()}
+        kernels[0]["batch8_device_ms_per_frame"] = a_batch_ms
+        kernels[1]["batch8_device_ms_per_frame"] = b_batch_ms
         log(f"card: {card} — slice {1.0 / step_s:.2f} frames/s, big DB "
             f"{1.0 / big_s:.2f} frames/s, pruned {1.0 / pruned_s:.2f} "
-            f"frames/s")
+            f"frames/s; streams: " + ", ".join(
+                f"{label} {r['frames_per_s']:.2f} frames/s"
+                for label, r in streams.items()))
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Everything downstream of detection is fixed capacity + validity mask, as
 in the JAX package, so the port's outputs line up with the reference's
 array for array. The containers are plain dataclasses of tensors;
-``to_device`` moves any of them (nested included) to another device.
+``to_device`` moves any of them (nested included) to another device, and
+``select`` takes one item of a batched one.
 """
 
 from __future__ import annotations
@@ -13,18 +14,30 @@ import dataclasses
 import torch
 
 
-def to_device(obj, device):
-    """Copy a tensor dataclass (nested dataclasses and tuples of tensors
-    included) to `device`. Non-tensor fields are kept as they are."""
+def _map_tensors(obj, fn):
+    """fn applied to every tensor of a tensor dataclass (nested
+    dataclasses and tuples of tensors included). Non-tensor fields are
+    kept as they are."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return fn(obj)
     if isinstance(obj, tuple):
-        return tuple(to_device(x, device) for x in obj)
+        return tuple(_map_tensors(x, fn) for x in obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: to_device(getattr(obj, f.name), device)
+            f.name: _map_tensors(getattr(obj, f.name), fn)
             for f in dataclasses.fields(obj)})
     return obj
+
+
+def to_device(obj, device):
+    """Copy a tensor dataclass to `device`."""
+    return _map_tensors(obj, lambda t: t.to(device))
+
+
+def select(obj, index):
+    """Item `index` of the leading (batch) axis of every tensor of a tensor
+    dataclass: one image's Features of a batch's."""
+    return _map_tensors(obj, lambda t: t[index])
 
 
 @dataclasses.dataclass

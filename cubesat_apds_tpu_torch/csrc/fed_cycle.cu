@@ -38,6 +38,11 @@
 //   values from shared memory, does 13 flops and stores 1, with no divide
 //   and no index clamp in the loop. g never enters shared memory.
 //
+// - A batch of B images of one shape, with one tau schedule (the schedule
+//   depends on the level, not on the image), is one launch: gridDim.z = B
+//   over the tile or cluster grid of one image, so the small levels of a
+//   frame batch fill B times as many SMs.
+//
 // Every arithmetic operation uses an _rn intrinsic so nvcc cannot contract
 // a multiply and an add into an FMA: the result is the same bits as the
 // plain PyTorch twin (ops/kernels/diffusion.py:nld_step), in its term order
@@ -135,7 +140,8 @@ __device__ __forceinline__ void cluster_barrier() {
 #define FED_BARRIER_BYTES 16      // two mbarriers ahead of a cluster's buffers
 
 // Grid: C * tiles_y * tiles_x CTAs in clusters of C along x (C = 1 for
-// CLUSTER false); cluster i is output tile (i / tiles_x, i % tiles_x).
+// CLUSTER false), times B images along z; cluster i is output tile
+// (i / tiles_x, i % tiles_x) of image blockIdx.z.
 // Dynamic shared memory: two buffers (ping-pong) of the CTA's strip of
 // s = ceil(staged rows / C) rows of the staged width; in a cluster also a
 // ghost row above and below the strip, and ahead of the buffers one
@@ -163,6 +169,10 @@ fed_cycle_kernel(const float* __restrict__ L, const float* __restrict__ g,
                  float* __restrict__ out, int H, int W, int tile_h,
                  int tile_w, int tiles_x, int n_steps, FedHalfTaus half_taus) {
     extern __shared__ __align__(16) float smem[];
+    const size_t image = (size_t)blockIdx.z * H * W;
+    L += image;
+    g += image;
+    out += image;
     const int C = CLUSTER ? (int)cluster_count() : 1;
     const int rank = CLUSTER ? (int)cluster_rank() : 0;
     const int tile = CLUSTER ? (int)cluster_index() : (int)blockIdx.x;
@@ -356,13 +366,13 @@ static cudaError_t ensure_attributes(FedKernel fn, int slot, int smem_bytes,
     return err;
 }
 
-// A launch configuration of `ctas` CTAs in clusters of `cluster` along x
-// (no cluster attribute for 1: plain tiles).
+// A launch configuration of `ctas` CTAs in clusters of `cluster` along x,
+// for `batch` images along z (no cluster attribute for 1: plain tiles).
 static void fill_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                        int ctas, int cluster, int threads, int smem_bytes,
-                        cudaStream_t stream) {
+                        int ctas, int batch, int cluster, int threads,
+                        int smem_bytes, cudaStream_t stream) {
     *cfg = cudaLaunchConfig_t{};
-    cfg->gridDim = dim3((unsigned)ctas);
+    cfg->gridDim = dim3((unsigned)ctas, 1u, (unsigned)batch);
     cfg->blockDim = dim3((unsigned)threads);
     cfg->dynamicSmemBytes = (size_t)smem_bytes;
     cfg->stream = stream;
@@ -387,9 +397,11 @@ static void plan_size(int H, int W, int tile_h, int tile_w, int cluster,
                         : 2 * 4 * s * sw;
 }
 
-static bool plan_ok(int H, int W, int tile_h, int tile_w, int cluster,
-                    int threads, int cpt, int n_steps, int smem_bytes) {
+static bool plan_ok(int H, int W, int batch, int tile_h, int tile_w,
+                    int cluster, int threads, int cpt, int n_steps,
+                    int smem_bytes) {
     if (n_steps < 1 || n_steps > FED_MAX_STEPS || H < 1 || W < 1 ||
+        batch < 1 || batch > 65535 ||
         tile_h < 1 || tile_w < 1 || threads < 32 || threads % 32 != 0 ||
         threads > FED_MAX_THREADS || cluster < 1 || cluster > FED_MAX_CLUSTER ||
         (cluster & (cluster - 1)) != 0) {
@@ -402,8 +414,10 @@ static bool plan_ok(int H, int W, int tile_h, int tile_w, int cluster,
     return need <= threads && smem <= smem_bytes && ctas <= 0x7fffffffLL;
 }
 
-// Launches one cycle on `stream` with the plan of diffusion.py:fed_plan:
-// output tiles of tile_h x tile_w, each staged with a halo of n_steps and
+// Launches one cycle of each of `batch` H x W images (contiguous, one
+// after another in L, g and out) on `stream` with the plan of
+// diffusion.py:fed_plan: output tiles of tile_h x tile_w, each staged with
+// a halo of n_steps and
 // split over a cluster of `cluster` CTAs (1 = plain tiles) of `threads`
 // threads owning up to `cpt` cells of a column each. half_taus is a HOST array of
 // n_steps floats (copied into the kernel's parameters). smem_bytes must
@@ -413,14 +427,14 @@ static bool plan_ok(int H, int W, int tile_h, int tile_w, int cluster,
 // Returns a cudaError_t: invalid value for a plan that does not fit,
 // else cudaGetLastError() after the launch.
 extern "C" int apds_fed_cycle(const float* L, const float* g, float* out,
-                              int H, int W, int tile_h, int tile_w,
+                              int batch, int H, int W, int tile_h, int tile_w,
                               int cluster, int threads, int cpt,
                               const float* half_taus, int n_steps,
                               int smem_bytes, void* stream) {
     int slot = 0;
     const FedKernel fn = kernel_for(cpt, cluster, &slot);
-    if (fn == nullptr || !plan_ok(H, W, tile_h, tile_w, cluster, threads,
-                                  cpt, n_steps, smem_bytes)) {
+    if (fn == nullptr || !plan_ok(H, W, batch, tile_h, tile_w, cluster,
+                                  threads, cpt, n_steps, smem_bytes)) {
         return (int)cudaErrorInvalidValue;
     }
     cudaError_t err = ensure_attributes(fn, slot, smem_bytes, cluster);
@@ -432,8 +446,8 @@ extern "C" int apds_fed_cycle(const float* L, const float* g, float* out,
     const int tiles_y = (H + tile_h - 1) / tile_h;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    fill_config(&cfg, &attr, cluster * tiles_x * tiles_y, cluster, threads,
-                smem_bytes, (cudaStream_t)stream);
+    fill_config(&cfg, &attr, cluster * tiles_x * tiles_y, batch, cluster,
+                threads, smem_bytes, (cudaStream_t)stream);
     err = cudaLaunchKernelEx(&cfg, fn, L, g, out, H, W, tile_h, tile_w,
                              tiles_x, n_steps, t);
     if (err != cudaSuccess) return (int)err;
@@ -459,7 +473,7 @@ extern "C" int apds_fed_cycle_info(int cluster, int threads, int cpt,
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute cattr;
-    fill_config(&cfg, &cattr, cluster, cluster, threads, smem_bytes, 0);
+    fill_config(&cfg, &cattr, cluster, 1, cluster, threads, smem_bytes, 0);
     cfg.numAttrs = 1;            // the occupancy query takes cluster 1 too
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);

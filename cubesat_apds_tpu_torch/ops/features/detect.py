@@ -5,7 +5,9 @@ Every acceptance rule (strict 3×3 peak, threshold, border, cross-level
 dominance, sub-pixel refinement within 1 px) is a per-pixel predicate on
 dense maps, followed by ONE exact global top-K over all levels and the
 canonical (response DESC, map position ASC) re-sort, as in the JAX
-package with ``detect_topk="exact"``.
+package with ``detect_topk="exact"``. A batched scale space ([B, h, w]
+levels) detects in every image at once; maps, top-K and sort act on each
+image alone.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from cubesat_apds_tpu_torch.core.config import AkazeConfig
-from cubesat_apds_tpu_torch.core.types import Keypoints
+from cubesat_apds_tpu_torch.core.types import Keypoints, select
 from cubesat_apds_tpu_torch.ops.features.scale_space import ScaleSpace
 from cubesat_apds_tpu_torch.ops.resample import separable_conv2d
 
@@ -60,10 +62,10 @@ def det_hessian_response(Lsmooth, sigma_size: int):
 
 
 def _shift2d(x, dy: int, dx: int):
-    """Edge-clamped static shift of [H, W]."""
-    h, w = x.shape
-    xp = F.pad(x[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-    return xp[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+    """Edge-clamped static shift of [B, H, W]."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    return xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
 
 
 def _maxpool_1d(x, r: int, axis: int):
@@ -88,27 +90,29 @@ def _maxpool_radius(x, r: int):
 
 
 def _resample_to(x, shape_hw):
-    """Nearest-resample a response map to an adjacent octave's grid."""
-    h, w = x.shape
+    """Nearest-resample [B, h, w] response maps to an adjacent octave's
+    grid."""
+    b, h, w = x.shape
     th, tw = shape_hw
     if (h, w) == (th, tw):
         return x
     if th <= h:   # downsample by 2: max of 2×2 (conservative)
-        x = x[: th * 2, : tw * 2].reshape(th, 2, tw, 2)
-        return x.amax(dim=(1, 3))
-    x = x.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)[:th, :tw]
-    if x.shape != (th, tw):
-        x = F.pad(x[None, None], (0, tw - x.shape[1], 0, th - x.shape[0]),
-                  mode="replicate")[0, 0]
+        x = x[:, : th * 2, : tw * 2].reshape(b, th, 2, tw, 2)
+        return x.amax(dim=(2, 4))
+    x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)[:, :th, :tw]
+    if x.shape[1:] != (th, tw):
+        x = F.pad(x[:, None], (0, tw - x.shape[2], 0, th - x.shape[1]),
+                  mode="replicate")[:, 0]
     return x
 
 
 def _stable_sort_canonical(vals, idx):
-    """Permutation ordering by (vals DESC, idx ASC): torch has no lexsort,
-    so sort by the secondary key, then stably by the primary."""
+    """Per row, the permutation ordering by (vals DESC, idx ASC): torch
+    has no lexsort, so sort by the secondary key, then stably by the
+    primary."""
     p1 = torch.sort(idx, stable=True).indices
-    p2 = torch.sort(-vals[p1], stable=True).indices
-    return p1[p2]
+    p2 = torch.sort(-vals.gather(-1, p1), stable=True).indices
+    return p1.gather(-1, p2)
 
 
 def detect_keypoints(ss: ScaleSpace, config: AkazeConfig = AkazeConfig(),
@@ -118,16 +122,20 @@ def detect_keypoints(ss: ScaleSpace, config: AkazeConfig = AkazeConfig(),
     """Scale-space extrema → fixed-capacity Keypoints (+ per-level Lx, Ly).
 
     class_id is the evolution level index. The top-K is exact
-    (`torch.topk`) whatever `config.detect_topk` says.
+    (`torch.topk`) whatever `config.detect_topk` says. A batched scale
+    space gives Keypoints [B, capacity] and per-level [B, h, w] maps.
     """
     capacity = capacity or config.capacity
     meta = ss.meta
     n_levels = len(meta)
     dev = ss.Lt[0].device
+    batched = ss.Lt[0].dim() == 3
+    lsmooth = ss.Lsmooth if batched else [a[None] for a in ss.Lsmooth]
+    bsz = lsmooth[0].shape[0]
 
     ldet_list, lx_list, ly_list = [], [], []
     for i in range(n_levels):
-        ldet, lx, ly = det_hessian_response(ss.Lsmooth[i], meta[i].sigma_size)
+        ldet, lx, ly = det_hessian_response(lsmooth[i], meta[i].sigma_size)
         ldet_list.append(ldet)
         lx_list.append(lx)
         ly_list.append(ly)
@@ -136,7 +144,7 @@ def detect_keypoints(ss: ScaleSpace, config: AkazeConfig = AkazeConfig(),
     thr = torch.tensor(config.threshold, dtype=torch.float32, device=dev)
     for i in range(n_levels):
         ldet = ldet_list[i]
-        h, w = ldet.shape
+        h, w = ldet.shape[1:]
         m = meta[i]
         is_peak = ldet >= _maxpool3x3(ldet)
         above = ldet > thr
@@ -170,34 +178,35 @@ def detect_keypoints(ss: ScaleSpace, config: AkazeConfig = AkazeConfig(),
         refine_ok = (offx_map.abs() <= 1.0) & (offy_map.abs() <= 1.0)
 
         keep = is_peak & above & inside & ~dominated & refine_ok & (ldet > 0)
-        masked_maps.append(torch.where(keep, ldet, -torch.inf).reshape(-1))
+        masked_maps.append(torch.where(keep, ldet, -torch.inf).reshape(bsz,
+                                                                      -1))
         sub_maps.append(torch.stack([offx_map, offy_map],
-                                    dim=-1).reshape(-1, 2))
+                                    dim=-1).reshape(bsz, -1, 2))
 
-    all_vals = torch.cat(masked_maps)
-    all_sub = torch.cat(sub_maps)
-    p_total = all_vals.shape[0]
+    all_vals = torch.cat(masked_maps, dim=1)
+    all_sub = torch.cat(sub_maps, dim=1)
+    p_total = all_vals.shape[1]
     k = min(capacity, p_total)
     top_vals, top_idx = torch.topk(all_vals, k)
     perm = _stable_sort_canonical(top_vals, top_idx)
-    top_vals = top_vals[perm]
-    top_idx = top_idx[perm]
-    sel = all_sub[top_idx]
+    top_vals = top_vals.gather(1, perm)
+    top_idx = top_idx.gather(1, perm)
+    sel = all_sub.gather(1, top_idx[..., None].expand(-1, -1, 2))
 
-    sizes = [ld.shape[0] * ld.shape[1] for ld in ldet_list]
+    sizes = [ld.shape[1] * ld.shape[2] for ld in ldet_list]
     level_end = torch.tensor(np.cumsum(sizes), device=dev)
     sel_lvl = torch.bucketize(top_idx, level_end, right=True)
     level_off = torch.tensor(np.concatenate([[0], np.cumsum(sizes)[:-1]]),
                              device=dev)
-    level_w = torch.tensor([ld.shape[1] for ld in ldet_list], device=dev)
+    level_w = torch.tensor([ld.shape[2] for ld in ldet_list], device=dev)
     ratios = torch.tensor([m.ratio for m in meta], dtype=torch.float32,
                           device=dev)
     local = top_idx - level_off[sel_lvl]
     py = torch.div(local, level_w[sel_lvl], rounding_mode="floor")
     px = local - py * level_w[sel_lvl]
     ratio = ratios[sel_lvl]
-    sel_x = (px.to(torch.float32) + sel[:, 0]) * ratio
-    sel_y = (py.to(torch.float32) + sel[:, 1]) * ratio
+    sel_x = (px.to(torch.float32) + sel[..., 0]) * ratio
+    sel_y = (py.to(torch.float32) + sel[..., 1]) * ratio
     valid = torch.isfinite(top_vals)
 
     esigmas = torch.tensor([m.esigma for m in meta], dtype=torch.float32,
@@ -210,19 +219,23 @@ def detect_keypoints(ss: ScaleSpace, config: AkazeConfig = AkazeConfig(),
     pad = capacity - k
     if pad:
         top_vals, size, valid, xy, sel_lvl = (
-            torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+            torch.cat([t, t.new_zeros((bsz, pad) + t.shape[2:])], dim=1)
             for t in (top_vals, size, valid, xy, sel_lvl))
 
     # Invalid slots are zeroed at the source (their values are whatever
     # −inf ties the top-k kept, which differ between implementations).
     kps = Keypoints(
-        xy=torch.where(valid[:, None], xy, 0.0),
+        xy=torch.where(valid[..., None], xy, 0.0),
         size=torch.where(valid, size, 0.0),
-        angle=torch.zeros(capacity, dtype=torch.float32, device=dev),
+        angle=torch.zeros((bsz, capacity), dtype=torch.float32, device=dev),
         response=torch.where(valid, top_vals, 0.0),
         octave=torch.where(valid, octaves[sel_lvl],
                            0).to(torch.int32),
         class_id=torch.where(valid, sel_lvl, -1).to(torch.int32),
         valid=valid,
     )
+    if not batched:
+        kps = select(kps, 0)
+        lx_list = [a[0] for a in lx_list]
+        ly_list = [a[0] for a in ly_list]
     return kps, lx_list, ly_list

@@ -4,6 +4,11 @@ ops/features/orientation.py, exact mode).
 Gaussian-weighted (Lx, Ly) on the static 109-point radius-6 disc (step =
 keypoint scale), then 42 sliding 60° windows; the window with the largest
 resultant vector gives the angle.
+
+Angles come from `_atan2`, float64 atan2 rounded to float32: float32
+atan2 on the CPU has a vector and a scalar path that differ in the last
+bit, and which one an element takes depends on where it sits in the
+tensor, so a keypoint's angle would depend on the batch around it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,12 @@ _WINDOW_STARTS = (np.arange(_N_WINDOWS) * 0.15).astype(np.float32)
 def _fround(x):
     """OpenCV fRound: round half away from zero (positive domain here)."""
     return torch.floor(x + 0.5).to(torch.int32)
+
+
+def _atan2(y, x):
+    """float32 atan2 through float64: the same bits on every device and
+    wherever the element sits in its tensor."""
+    return torch.atan2(y.double(), x.double()).to(torch.float32)
 
 
 def orientation_sample_coords(xy, size, class_id, octave):
@@ -66,7 +77,7 @@ def compute_orientations(packed_stack, level_hw, xy, size, class_id,
     res_y = vals[..., 2] * weights[None, :]
 
     two_pi = 2.0 * math.pi
-    ang = torch.atan2(res_y, res_x)
+    ang = _atan2(res_y, res_x)
     ang = torch.where(ang < 0, ang + two_pi, ang)              # [K, 109]
     starts = torch.as_tensor(_WINDOW_STARTS, device=xy.device)
     rel = ang[:, None, :] - starts[None, :, None]               # [K, 42, 109]
@@ -79,6 +90,6 @@ def compute_orientations(packed_stack, level_hw, xy, size, class_id,
     best = mag.argmax(-1, keepdim=True)
     bx = sum_x.gather(-1, best)[:, 0]
     by = sum_y.gather(-1, best)[:, 0]
-    angle = torch.atan2(by, bx)
+    angle = _atan2(by, bx)
     angle = torch.where(angle < 0, angle + two_pi, angle)
     return torch.where(valid, angle, 0.0)

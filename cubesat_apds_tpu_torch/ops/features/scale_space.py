@@ -6,7 +6,10 @@ and scales the contrast factor by 0.75; per level, Lsmooth = G(σ=1)·Lt,
 conductance g = PM-G2(∇Lsmooth, k) and one FED cycle (kernel A on CUDA)
 with the τ schedule of `fed_tau_by_process_time`. The step `nld_step`
 and its plain cycle `fed_cycle` live beside the kernel, in
-ops/kernels/diffusion.py.
+ops/kernels/diffusion.py. A batch [B, H, W] builds every image's scale
+space at once (one kernel-A launch per level for the batch); each image
+keeps its own contrast factor, and every operation acts on each image
+alone, so an image gives the same bits in a batch as alone.
 """
 
 from __future__ import annotations
@@ -64,22 +67,24 @@ def compute_k_percentile(img, percentile: float = 0.7, gscale: float = 1.0,
     Picks the same bin as the JAX package: the smallest k in [1, nbins]
     with #{non-zero |∇|² < (k·hmax/nbins)²} ≥ ⌊percentile·npoints⌋, found
     by the same 9-round bisection over the same f32 thresholds, on the
-    device and without a host round trip. Borders excluded.
+    device and without a host round trip. Borders excluded. img [..., H,
+    W] → k [...]: one per image (the max and the counts are per image).
     """
     smooth = gaussian_blur(img, gscale)
     lx = scharr_x(smooth)[..., 1:-1, 1:-1]
     ly = scharr_y(smooth)[..., 1:-1, 1:-1]
     modg2 = lx * lx + ly * ly
-    hmax = torch.sqrt(modg2.max())
+    hw = (-2, -1)
+    hmax = torch.sqrt(modg2.amax(dim=hw))
     nz = modg2 > 0.0
-    npoints = nz.sum()
+    npoints = nz.sum(dim=hw)
     nthreshold = (npoints.to(torch.float32) * percentile).to(torch.int32)
-    lo = torch.zeros((), dtype=torch.int32, device=img.device)
-    hi = torch.full((), nbins, dtype=torch.int32, device=img.device)
+    lo = torch.zeros(hmax.shape, dtype=torch.int32, device=img.device)
+    hi = torch.full(hmax.shape, nbins, dtype=torch.int32, device=img.device)
     for _ in range(9):          # 2^9 = 512 ≥ nbins = 300
         mid = torch.div(lo + hi, 2, rounding_mode="floor")
         t = (mid.to(torch.float32) * hmax / nbins) ** 2
-        below = (nz & (modg2 < t)).sum() < nthreshold
+        below = (nz & (modg2 < t[..., None, None])).sum(dim=hw) < nthreshold
         lo = torch.where(below, mid, lo)
         hi = torch.where(below, hi, mid)
     kperc = hmax * hi.to(torch.float32) / nbins
@@ -119,7 +124,8 @@ def evolution_metadata(config: AkazeConfig) -> List[LevelMeta]:
 @dataclasses.dataclass
 class ScaleSpace:
     """Per level (index o·S + j): Lt (diffused) and Lsmooth (σ=1 blur of
-    the level's pre-diffusion image) at [H/2^o, W/2^o]."""
+    the level's pre-diffusion image) at [..., H/2^o, W/2^o], and the
+    contrast factor of each image [...]."""
 
     Lt: List[torch.Tensor]
     Lsmooth: List[torch.Tensor]
@@ -129,9 +135,11 @@ class ScaleSpace:
 
 def build_scale_space(img, config: AkazeConfig = AkazeConfig(),
                       kcontrast=None) -> ScaleSpace:
-    """img: [H, W] float32 in [0, 1] → 16-level nonlinear scale space.
+    """img: [H, W] or a batch [B, H, W], float32 in [0, 1] → 16-level
+    nonlinear scale space.
 
-    `kcontrast` overrides the per-image contrast factor.
+    `kcontrast` overrides the per-image contrast factor (a scalar, or one
+    per image).
     """
     img = img.to(torch.float32)
     meta = evolution_metadata(config)
@@ -140,7 +148,7 @@ def build_scale_space(img, config: AkazeConfig = AkazeConfig(),
             img, config.kcontrast_percentile, 1.0, config.kcontrast_nbins)
     else:
         kcontrast0 = torch.as_tensor(kcontrast, dtype=torch.float32,
-                                     device=img.device)
+                                     device=img.device).expand(img.shape[:-2])
 
     Lt = gaussian_blur(img, config.soffset)
     Lt_list = [Lt]
@@ -151,7 +159,8 @@ def build_scale_space(img, config: AkazeConfig = AkazeConfig(),
             Lt = half_sample(Lt)
             kcontrast = kcontrast * 0.75
         Lsmooth = gaussian_blur(Lt, 1.0)
-        g = pm_g2(scharr_x(Lsmooth), scharr_y(Lsmooth), kcontrast)
+        g = pm_g2(scharr_x(Lsmooth), scharr_y(Lsmooth),
+                  kcontrast[..., None, None])
         taus = fed_tau_by_process_time(
             meta[i].etime - meta[i - 1].etime, config.fed_tau_max)
         Lt = fed_cycle_fused(Lt, g, taus)

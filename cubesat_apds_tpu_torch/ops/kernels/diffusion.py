@@ -5,11 +5,12 @@ A cycle runs n explicit steps L ← L + τₖ/2 · Σ₄ (g_p+g_q)(L_q−L_p) wi
 the conductance g fixed and a Neumann (edge-clamped) boundary. The
 plain twin does each step as whole-image tensor ops (2·n device-memory
 transits of L); the kernel runs all n steps in one launch on output
-tiles staged with a halo of n cells (2 transits). `fed_plan` picks the
-launch: plain tiles, one CTA each, where their grid fills the card, and
-otherwise tiles shared by a thread-block cluster of up to 16 CTAs that
-each hold a strip of the tile's rows, so the small levels run on many
-SMs.
+tiles staged with a halo of n cells (2 transits). A batch of images of
+one shape takes one launch, its images along the grid's z. `fed_plan`
+picks the launch: plain tiles, one CTA each, where the batch's tile grid
+fills the card, and otherwise tiles shared by a thread-block cluster of
+up to 16 CTAs that each hold a strip of the tile's rows, so the small
+levels run on many SMs.
 
 `fed_cycle_fused` dispatches on the device of its input: CPU tensors go
 to the twin, CUDA tensors to the kernel, anything else raises.
@@ -58,7 +59,8 @@ def nld_step(L, g, tau: float):
 
 
 def fed_cycle(L, g, taus):
-    """Plain twin of kernel A: a full FED cycle, one step at a time."""
+    """Plain twin of kernel A: a full FED cycle, one step at a time, on
+    [..., H, W] (every leading index an image of its own)."""
     for tau in np.asarray(taus, np.float32):
         L = nld_step(L, g, tau)
     return L
@@ -68,23 +70,25 @@ def fed_cycle(L, g, taus):
 class FedPlan:
     """One launch of kernel A: output tiles of tile_h × tile_w, each
     staged with a halo of n cells (clipped to the image) and split by rows
-    over a cluster of `cluster` CTAs (1: plain tiles)."""
+    over a cluster of `cluster` CTAs (1: plain tiles), for each of `batch`
+    images."""
 
     form: str               # "tiles" (cluster 1) or "cluster"
     cluster: int
     tile_h: int
     tile_w: int
-    tiles: int              # output tiles, one cluster each
-    ctas: int
+    tiles: int              # output tiles of one image, one cluster each
+    ctas: int               # CTAs of the launch: tiles · cluster · batch
     strip_rows: int         # staged rows per CTA of the largest tile
     cells: int              # staged cells per CTA of the largest tile
     threads: int
     cells_per_thread: int
     smem: int               # dynamic shared memory per CTA, bytes
+    batch: int = 1
 
 
 def _layout(h: int, w: int, n: int, tile_h: int, tile_w: int,
-            cluster: int):
+            cluster: int, batch: int):
     """The plan for one tiling, or None where a CTA's columns do not fit
     its threads or its buffers its shared memory, or where the largest
     tile leaves a CTA of the cluster without rows."""
@@ -105,10 +109,10 @@ def _layout(h: int, w: int, n: int, tile_h: int, tile_w: int,
     tiles = -(-h // tile_h) * -(-w // tile_w)
     return FedPlan(form="tiles" if cluster == 1 else "cluster",
                    cluster=cluster, tile_h=tile_h, tile_w=tile_w,
-                   tiles=tiles, ctas=tiles * cluster, strip_rows=strip,
-                   cells=strip * cols,
+                   tiles=tiles, ctas=tiles * cluster * batch,
+                   strip_rows=strip, cells=strip * cols,
                    threads=32 * -(-(cols * -(-strip // cpt)) // 32),
-                   cells_per_thread=cpt, smem=smem)
+                   cells_per_thread=cpt, smem=smem, batch=batch)
 
 
 def _tile_sizes(extent: int):
@@ -117,21 +121,21 @@ def _tile_sizes(extent: int):
 
 @functools.lru_cache(maxsize=256)
 def fed_plan(h: int, w: int, n_steps: int, form: str | None = None,
-             cluster: int | None = None) -> FedPlan:
-    """Kernel A's launch for an [h, w] image and n_steps steps.
+             cluster: int | None = None, batch: int = 1) -> FedPlan:
+    """Kernel A's launch for `batch` [h, w] images and n_steps steps.
 
     Plain tiles (T×T outputs, T = 32 for short cycles and 64 for long
-    ones, shrunk until a CTA's staged columns fit) where their grid has at
-    least one CTA per SM. Otherwise a cluster: of the tilings and cluster
-    sizes whose CTAs fit the card in one wave, the one with the fewest
-    cells per thread, then the fewest staged cells, then the largest
-    cluster. `form` and `cluster` force a choice (to compare forms).
-    Raises where nothing fits.
+    ones, shrunk until a CTA's staged columns fit) where the batch's grid
+    has at least one CTA per SM. Otherwise a cluster: of the tilings and
+    cluster sizes whose CTAs (all images') fit the card in one wave, the
+    one with the fewest cells per thread, then the fewest staged cells,
+    then the largest cluster. `form` and `cluster` force a choice (to
+    compare forms). Raises where nothing fits.
     """
     tiles = None
     t = 32 if n_steps <= 8 else 64
     while tiles is None and t >= 8:
-        tiles = _layout(h, w, n_steps, min(h, t), min(w, t), 1)
+        tiles = _layout(h, w, n_steps, min(h, t), min(w, t), 1, batch)
         t //= 2
     if form == "tiles" or (form is None and tiles is not None
                            and tiles.ctas >= NUM_SMS):
@@ -141,7 +145,7 @@ def fed_plan(h: int, w: int, n_steps: int, form: str | None = None,
         return tiles
     sizes = CLUSTER_SIZES if cluster is None else (cluster,)
     plans = [p for c in sizes for th in _tile_sizes(h) for tw in _tile_sizes(w)
-             if (p := _layout(h, w, n_steps, th, tw, c)) is not None]
+             if (p := _layout(h, w, n_steps, th, tw, c, batch)) is not None]
     if not plans:
         if tiles is not None and form is None:
             return tiles
@@ -162,17 +166,19 @@ def _half_taus(taus: bytes):
 
 
 def fed_cycle_cuda(L, g, taus, plan: FedPlan | None = None):
-    """Kernel A on CUDA tensors L, g [H, W] float32 (contiguous), with
-    `fed_plan`'s launch unless `plan` names another."""
+    """Kernel A on CUDA tensors L, g [H, W] or [B, H, W] float32
+    (contiguous): one launch for the whole batch, with `fed_plan`'s launch
+    unless `plan` names another (for the same batch)."""
     if L.device.type != "cuda" or g.device != L.device:
         raise ValueError(f"fed_cycle_cuda: L on {L.device}, g on {g.device}; "
                          "both must be on one CUDA device")
     if L.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(f"fed_cycle_cuda: float32 required, got "
                         f"{L.dtype}, {g.dtype}")
-    if L.dim() != 2 or L.shape != g.shape:
+    if L.dim() not in (2, 3) or L.shape != g.shape or L.numel() == 0:
         raise ValueError(f"fed_cycle_cuda: L {tuple(L.shape)} and g "
-                         f"{tuple(g.shape)} must be one [H, W] shape")
+                         f"{tuple(g.shape)} must be one non-empty [H, W] "
+                         "or [B, H, W] shape")
     if not (L.is_contiguous() and g.is_contiguous()):
         raise ValueError("fed_cycle_cuda: L and g must be contiguous")
     taus = np.asarray(taus, np.float32)
@@ -181,13 +187,17 @@ def fed_cycle_cuda(L, g, taus, plan: FedPlan | None = None):
         raise ValueError(f"fed_cycle_cuda: 1..{MAX_STEPS} steps, got "
                          f"{taus.shape}")
     _, half_taus = _half_taus(taus.tobytes())
-    h, w = L.shape
-    p = plan or fed_plan(h, w, n)
+    h, w = L.shape[-2:]
+    b = L.shape[0] if L.dim() == 3 else 1
+    p = plan or fed_plan(h, w, n, batch=b)
+    if p.batch != b:
+        raise ValueError(f"fed_cycle_cuda: a plan for {p.batch} images given "
+                         f"{b}")
     out = torch.empty_like(L)
     lib = build.load_kernels().lib
     with build.on_device(L.device):
         err = lib.apds_fed_cycle(
-            L.data_ptr(), g.data_ptr(), out.data_ptr(), h, w, p.tile_h,
+            L.data_ptr(), g.data_ptr(), out.data_ptr(), b, h, w, p.tile_h,
             p.tile_w, p.cluster, p.threads, p.cells_per_thread,
             half_taus, n, p.smem, build.stream_of(L))
     build.check_launch("apds_fed_cycle", err)

@@ -9,7 +9,9 @@ orientation.gather_sampler. The kernel is a direct gather: one thread
 per sample, texels read through the read-only cache.
 
 `patch_sampler` dispatches on the stack's device: CPU tensors go to the
-twin, CUDA tensors to the kernel, anything else raises.
+twin, CUDA tensors to the kernel, anything else raises. A batch of stacks
+[B, L, H, W, 4] folds into the stack axis ([B·L, H, W, 4], image b's
+levels at b·L + l), so one launch samples every image's keypoints.
 """
 
 from __future__ import annotations
@@ -81,7 +83,14 @@ sample_patches_cuda.launches = 0
 def patch_sampler(packed, level_hw, lvl):
     """sample_fn(iy, ix) → [K, S, 4] f32 for keypoints on levels `lvl`
     (already clipped to [0, L)): kernel B for a CUDA stack, the plain twin
-    for a CPU one."""
+    for a CPU one. A batch — packed [B, L, H, W, 4], lvl [B, n] — samples
+    its B·n keypoints, image by image, with iy, ix [B·n, S]."""
+    if packed.dim() == 5:
+        b, n_lvl = packed.shape[:2]
+        offs = torch.arange(b, device=lvl.device)[:, None] * n_lvl
+        packed = packed.reshape((b * n_lvl,) + packed.shape[2:])
+        level_hw = level_hw.repeat(b, 1)
+        lvl = (lvl + offs).reshape(-1)
     dev = packed.device
     if dev.type == "cpu":
         return lambda iy, ix: sample_patches_plain(packed, level_hw, lvl,

@@ -11,6 +11,11 @@ kNN-2 kernel, with its layout made once per DB.
 The pruned serving path (`make_pruned_db`, `localize_frame_pruned`) keeps
 the DB sorted by spatial cell and matches each frame against the rows
 inside a window found from a coarse DB, with no O(M) work per frame.
+
+A stored DB (store/*, opened with `store.open_store`) loads one LoD at a
+time: `load_device_db`, `load_pruned_device_db`, `Localizer` given a
+store, and the two-stage `localize_coarse_to_fine`. World points are the
+store's ECEF coordinates, computed in float64 on the host at load.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
-from cubesat_apds_tpu_torch.core.config import MatchConfig, PipelineConfig
+from cubesat_apds_tpu_torch.core.config import (
+    MAX_POINTS, MatchConfig, PipelineConfig)
 from cubesat_apds_tpu_torch.core.types import (
     CameraModel, Correspondences, Features, HomographyResult, Keypoints,
     Matches, PoseSolution, to_device)
@@ -30,6 +37,7 @@ from cubesat_apds_tpu_torch.ops.geometry.homography import (
 from cubesat_apds_tpu_torch.ops.geometry.pnp import solve_pnp_ransac
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import rodrigues_to_matrix
 from cubesat_apds_tpu_torch.ops.match import knn_match, matched_points
+from cubesat_apds_tpu_torch.store.feature_store import device_block
 
 
 @dataclasses.dataclass
@@ -67,6 +75,72 @@ def _maybe_match_layout(desc, valid, match_config: MatchConfig):
     from cubesat_apds_tpu_torch.ops.kernels.match_kernel import (
         layout_db_blocks, pack_words)
     return layout_db_blocks(pack_words(desc), valid)
+
+
+def _world_points(store, xy, valid, has_world: bool):
+    """[M, 3] float32 ECEF points of the rows at reference-frame `xy`
+    (zeros where not valid, or everywhere without a world mapping)."""
+    if not has_world:
+        return np.zeros((len(xy), 3), np.float32)
+    obj = store.get_world_coordinates(store.world_dataset_id(), xy[:, 0],
+                                      xy[:, 1])
+    return np.where(valid[:, None], obj, 0.0).astype(np.float32)
+
+
+def _device_db(desc, xy, valid, obj, has_world, match_config, device):
+    """A DeviceDb of host arrays on `device`, with the kNN-2 layout made
+    there where the big-DB kernel path would take it."""
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for a in (desc, xy, valid, obj)]
+    return DeviceDb(descriptors=t[0], xy=t[1], valid=t[2], obj_points=t[3],
+                    has_world=has_world,
+                    match_layout=_maybe_match_layout(
+                        t[0], t[2], match_config or MatchConfig()),
+                    # get_world_coordinates always emits EPSG:4978 ECEF.
+                    world_frame="ecef" if has_world else "local")
+
+
+def load_device_db(store, lod: int = 0, pad_multiple: int = 2048,
+                   match_config: Optional[MatchConfig] = None,
+                   device="cuda", limit: int = MAX_POINTS) -> DeviceDb:
+    """One LoD of a store (either backend) as a DeviceDb on `device` (the
+    card unless the caller names another), with ECEF world points where
+    the store has elevation data, and the kNN-2 layout made once where
+    the DB exceeds `match_config.db_block` on the card.
+
+    The rows are the store's LoD query: response-ranked and capped at
+    `limit` (the reference's 2^18−1 unless the caller asks for more),
+    zero-padded to a multiple of `pad_multiple`.
+    """
+    desc, xy, valid, _ = store.export_device_block(lod, pad_multiple, limit)
+    world_id = store.world_dataset_id()
+    has_world = store._elevation is not None and world_id is not None
+    return _device_db(desc, xy, valid,
+                      _world_points(store, xy, valid, has_world), has_world,
+                      match_config, device)
+
+
+def check_descriptor_mode(store, config: PipelineConfig):
+    """Refuse a store/config descriptor-mode mismatch.
+
+    Exact and fast MLDB sampling produce incompatible bit patterns; a
+    frame described in one mode matched against a DB built in the other
+    collapses to near-zero ratio matches with no other symptom. Stores
+    record their mode at build time (None = pre-provenance store,
+    accepted as-is)."""
+    mode = getattr(store, "descriptor_mode", None)
+    want = config.akaze.descriptor_tag
+    if mode is not None and mode != want:
+        raise ValueError(
+            f"store was built with descriptor_mode='{mode}' but the "
+            f"pipeline config produces '{want}' — descriptors across "
+            f"modes don't match; pass a config matching '{mode}' "
+            "or rebuild the store")
+
+
+def _store_lods(store):
+    images = store.images if hasattr(store, "images") else store._images
+    return sorted({r.level_of_detail for r in images.values()})
 
 
 @dataclasses.dataclass
@@ -137,32 +211,61 @@ def localize_frame(frame, db: DeviceDb, camera: CameraModel,
                                   config, solve_pose)
 
 
+def resident_db(db: DeviceDb, config: PipelineConfig, device) -> DeviceDb:
+    """`db` on `device`, with the kNN-2 layout made there once where the
+    big-DB kernel path would take it."""
+    db = to_device(db, device)
+    if db.match_layout is None:
+        db = dataclasses.replace(db, match_layout=_maybe_match_layout(
+            db.descriptors, db.valid, config.match))
+    return db
+
+
 class Localizer:
     """Serving-path localizer with a DB kept resident on one device.
 
-    The DB (built from arrays, e.g. with convert.device_db_from) and the
-    camera move to `device` once — the card ("cuda") unless the caller
-    names another; without a card that raises — and a big DB's kNN-2
-    layout is made there once. Every `localize` call then runs just the
-    pipeline.
+    Given a DeviceDb (built from arrays, e.g. with convert.device_db_from),
+    the DB and the camera move to `device` once — the card ("cuda")
+    unless the caller names another; without a card that raises — and a
+    big DB's kNN-2 layout is made there once. Given a store, it checks the
+    store's descriptor mode and loads each LoD once, on first use, with
+    `load_device_db`. Every `localize` call then runs just the pipeline.
     """
 
-    def __init__(self, db: DeviceDb, camera: CameraModel,
-                 config: PipelineConfig = PipelineConfig(), device=None):
+    def __init__(self, db, camera: CameraModel,
+                 config: PipelineConfig = PipelineConfig(), device=None,
+                 pad_multiple: int = 2048):
         self.device = torch.device("cuda" if device is None else device)
-        db = to_device(db, self.device)
-        if db.match_layout is None:
-            db = dataclasses.replace(db, match_layout=_maybe_match_layout(
-                db.descriptors, db.valid, config.match))
-        self.db = db
         self.camera = to_device(camera, self.device)
         self.config = config
+        self.pad_multiple = pad_multiple
+        self._dbs: dict = {}
+        self.store = None
+        if isinstance(db, DeviceDb):
+            self._dbs[0] = resident_db(db, config, self.device)
+        else:
+            check_descriptor_mode(db, config)
+            self.store = db
 
-    def localize(self, frame, solve_pose: Optional[bool] = None
-                 ) -> LocalizationResult:
+    def device_db(self, lod: int = 0) -> DeviceDb:
+        if lod not in self._dbs:
+            if self.store is None:
+                raise KeyError(f"Localizer holds one DeviceDb (LoD 0), not "
+                               f"LoD {lod}")
+            self._dbs[lod] = load_device_db(self.store, lod, self.pad_multiple,
+                                            self.config.match, self.device)
+        return self._dbs[lod]
+
+    @property
+    def db(self) -> DeviceDb:
+        return self.device_db(0)
+
+    def localize(self, frame, lod: int = 0,
+                 solve_pose: Optional[bool] = None) -> LocalizationResult:
+        db = self.device_db(lod)
         if solve_pose is None:
-            solve_pose = self.db.has_world
-        return localize_frame(frame, self.db, self.camera, self.config,
+            solve_pose = db.has_world
+        return localize_frame(frame, db, self.camera, self.config,
                               solve_pose)
 
 
@@ -278,6 +381,26 @@ def make_pruned_db(db: DeviceDb, coarse: DeviceDb,
                           coarse=to_device(coarse, db.device),
                           window_capacity=window_capacity,
                           has_world=db.has_world, world_frame=db.world_frame)
+
+
+def load_pruned_device_db(store, fine_lod: int = 0,
+                          coarse_lod: Optional[int] = None,
+                          window_capacity: int = 16384,
+                          pad_multiple: int = 2048,
+                          match_config: Optional[MatchConfig] = None,
+                          device="cuda",
+                          limit: int = MAX_POINTS) -> PrunedDeviceDb:
+    """Store → PrunedDeviceDb on `device` (the card unless the caller
+    names another): the fine LoD sorted by spatial cell, and the coarse
+    LoD (the coarsest one by default) as the first-stage fix DB. `limit`
+    caps each LoD's rows as in load_device_db."""
+    if coarse_lod is None:
+        coarse_lod = _store_lods(store)[-1]
+    fine = load_device_db(store, fine_lod, pad_multiple, match_config,
+                          device, limit)
+    coarse = load_device_db(store, coarse_lod, pad_multiple, match_config,
+                            device, limit)
+    return make_pruned_db(fine, coarse, window_capacity)
 
 
 @dataclasses.dataclass
@@ -434,3 +557,71 @@ def localize_frame_pruned_fallback(frame, pdb: PrunedDeviceDb,
     db = DeviceDb(descriptors=desc, xy=xy, valid=valid, obj_points=obj,
                   has_world=pdb.has_world, world_frame=pdb.world_frame)
     return localize_frame(frame, db, camera, config, solve_pose)
+
+
+def localize_coarse_to_fine(frame, store, camera: CameraModel,
+                            config: PipelineConfig = PipelineConfig(),
+                            coarse_lod: Optional[int] = None,
+                            margin: float = 0.25,
+                            pad_multiple: int = 2048,
+                            solve_pose: Optional[bool] = None,
+                            coarse_db: Optional[DeviceDb] = None,
+                            device="cuda"):
+    """Two-stage localization over a store's LoD pyramid, through the
+    HOST store: match against the coarse LoD's DB, project the frame's
+    corners through the coarse homography to a reference-frame window
+    grown by `margin`, then match against the LoD-0 keypoints the store's
+    window query returns (keypointdb.rs:67-90 semantics). Without a
+    coarse fix the fine stage takes the whole LoD-0 DB.
+
+    The fine DB is padded to pad_multiple·2^k rows, the smallest that
+    holds the window, as the JAX package's ladder of shapes does. Runs on
+    `device` (the card unless the caller names another); `coarse_db`, if
+    given, is used as the coarse DB instead of loading it. Returns
+    (fine_result, coarse_result, window or None).
+    """
+    check_descriptor_mode(store, config)
+    lods = _store_lods(store)
+    if coarse_lod is None:
+        coarse_lod = lods[-1]
+    if coarse_db is None:
+        coarse_db = load_device_db(store, coarse_lod, pad_multiple,
+                                   config.match, device)
+    frame = torch.as_tensor(frame, dtype=torch.float32)
+    if solve_pose is None:
+        solve_pose = coarse_db.has_world
+    coarse = localize_frame(frame, coarse_db, camera, config, False)
+
+    H = coarse.homography.H.cpu().numpy().astype(np.float64)
+    h, w = frame.shape
+    corners = np.array([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1]],
+                       np.float64)
+    proj = corners @ H.T
+    proj = proj[:, :2] / np.clip(proj[:, 2:3], 1e-9, None)
+    x0, y0 = proj.min(axis=0)
+    x1, y1 = proj.max(axis=0)
+    mx = margin * (x1 - x0)
+    my = margin * (y1 - y0)
+    window = (x0 - mx, x1 + mx, y0 - my, y1 + my)
+
+    if not bool(coarse.homography.ok):
+        fine_db = load_device_db(store, lods[0], pad_multiple, config.match,
+                                 device)
+        fine = localize_frame(frame, fine_db, camera, config, solve_pose)
+        return fine, coarse, None
+
+    cols, desc = store.read_keypoints_from_coordinates(
+        window[0], window[1], window[2], window[3], lods[0])
+    n = len(desc)
+    m = pad_multiple
+    while m < n:
+        m *= 2
+    desc_p, xy_p, valid_p, _ = device_block(cols, desc, m)
+    has_world = coarse_db.has_world
+    fine_db = _device_db(
+        desc_p, xy_p, valid_p,
+        _world_points(store, xy_p, valid_p, has_world and n > 0),
+        has_world, config.match, device)
+    fine = localize_frame(frame, fine_db, camera, config,
+                          solve_pose and has_world)
+    return fine, coarse, window

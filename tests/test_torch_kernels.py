@@ -91,6 +91,39 @@ def test_fed_plan_covers_every_shape_the_halo_tiles_did():
         assert p.threads <= tdiff.MAX_THREADS and p.smem <= tdiff.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("batch", [1, 8, 16])
+@pytest.mark.parametrize("level", range(1, 16))
+def test_fed_plan_counts_the_batch(level, batch):
+    """Kernel A's plan for a batch of B images at each main-path level: a
+    CTA's buffers fit its shared memory and its cells its threads, the
+    tiles cover an image and the strips a tile, the CTAs count every
+    image, and the form follows the plan's rule over the batch's CTAs:
+    plain tiles where they fill the card, else a cluster plan that fits
+    it in one wave."""
+    h, w, taus = _LEVELS[level - 1]
+    n = len(taus)
+    p = tdiff.fed_plan(h, w, n, batch=batch)
+    rows, cols = min(h, p.tile_h + 2 * n), min(w, p.tile_w + 2 * n)
+    extra = 8 * 2 * cols + 16 if p.cluster > 1 else 0
+    assert p.batch == batch
+    assert p.smem == 8 * p.strip_rows * cols + extra <= tdiff.SMEM_LIMIT
+    assert cols * math.ceil(p.strip_rows / p.cells_per_thread) <= p.threads
+    assert p.threads % 32 == 0 and p.threads <= tdiff.MAX_THREADS
+    assert p.tiles == math.ceil(h / p.tile_h) * math.ceil(w / p.tile_w)
+    assert p.cluster * p.strip_rows >= rows
+    assert (p.cluster - 1) * p.strip_rows < rows
+    assert p.ctas == p.tiles * p.cluster * batch
+    if p.form == "tiles":
+        assert p.ctas >= tdiff.NUM_SMS
+    else:
+        assert p.ctas <= tdiff.NUM_SMS
+        tiles = tdiff.fed_plan(h, w, n, form="tiles", batch=batch)
+        assert tiles.ctas < tdiff.NUM_SMS
+    one = tdiff.fed_plan(h, w, n)
+    if one.form == "tiles":              # more images never leave tiles
+        assert p.form == "tiles" and p.tile_h == one.tile_h
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """On a non-CUDA tensor the kernel entry points raise instead of
     running anything else."""
@@ -187,6 +220,55 @@ def test_fed_kernel_matches_twin_on_card(cuda_device, h, w, level):
     got = tdiff.fed_cycle_cuda(L.to(cuda_device), g.to(cuda_device), taus)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 8])
+@pytest.mark.parametrize("h,w,level", [(64, 64, 15), (128, 128, 11),
+                                       (256, 256, 7), (101, 77, 6.0)])
+def test_batched_fed_kernel_matches_twin_on_card(cuda_device, batch, h, w,
+                                                 level):
+    """Kernel A on a batch of B images in one launch vs the twin on each
+    image alone, bit for bit: the main path's longest cycles at 64², 128²
+    and 256² (where a batch moves the plan to other forms) and a ragged
+    101×77."""
+    rng = np.random.default_rng(1)
+    L = torch.from_numpy(rng.uniform(0, 1, (batch, h, w)).astype(np.float32))
+    g = torch.from_numpy(rng.uniform(0.2, 1, (batch, h, w)).astype(
+        np.float32))
+    taus = (_LEVELS[level - 1][2] if isinstance(level, int)
+            else tss.fed_tau_by_process_time(level))
+    L, g = L.to(cuda_device), g.to(cuda_device)
+    before = tdiff.fed_cycle_cuda.launches
+    got = tdiff.fed_cycle_cuda(L, g, taus)
+    assert tdiff.fed_cycle_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    for b in range(batch):
+        assert torch.equal(got[b], tdiff.fed_cycle(L[b], g[b], taus)), b
+
+
+@pytest.mark.cuda
+def test_batched_sample_kernel_matches_twin_on_card(cuda_device):
+    """Kernel B on a batch of 8 stacks folded into its stack axis (one
+    launch) vs the twin on each stack alone, bit for bit."""
+    rng = np.random.default_rng(2)
+    B, L, H, W, K, S = 8, 4, 96, 80, 64, 441
+    stacks = torch.from_numpy(rng.standard_normal((B, L, H, W, 4)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda_device)
+    hw = torch.tensor([[96, 80], [48, 40], [96, 80], [24, 20]],
+                      dtype=torch.int32, device=cuda_device)
+    lvl = torch.from_numpy(rng.integers(0, L, (B, K))).to(cuda_device)
+    iy = torch.from_numpy(rng.integers(-40, 100, (B * K, S))).to(cuda_device)
+    ix = torch.from_numpy(rng.integers(-40, 100, (B * K, S))).to(cuda_device)
+    before = tsk.sample_patches_cuda.launches
+    got = tsk.patch_sampler(stacks, hw, lvl)(iy, ix)
+    assert tsk.sample_patches_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    for b in range(B):
+        ref = tsk.sample_patches_plain(stacks[b], hw, lvl[b],
+                                       iy[b * K:(b + 1) * K],
+                                       ix[b * K:(b + 1) * K])
+        assert torch.equal(got[b * K:(b + 1) * K], ref), b
 
 
 @pytest.mark.cuda

@@ -182,14 +182,23 @@ def test_convert_round_trip(scene):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port pulls in no jax."""
+    """Importing every module of the port (the store, utils and stream
+    modules among them) pulls in no jax and nothing of cubesat_apds_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cubesat_apds_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in\n"
+        "         pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "want = {'store', 'store.feature_store', 'store.binary_store',\n"
+        "        'store.native', 'core.geodesy', 'utils.profiling',\n"
+        "        'pipelines.stream', 'pipelines.localize'}\n"
+        "missing = {w for w in want if p.__name__ + '.' + w not in names}\n"
+        "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k == 'jax' or k.startswith(('jax.', 'cubesat_apds_tpu.')))\n"
+        "             if k == 'jax' or k.startswith(('jax.', 'cubesat_apds_tpu.'))\n"
+        "             or k == 'cubesat_apds_tpu')\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
