@@ -100,6 +100,29 @@
    batch of 8 tiles of 256²; one main-path step under "warn", its
    synchronising calls listed by file:line; the per-keypoint stages'
    device time at full capacity against the live prefix (bit-equal).
+11. Accuracy phase (the mission metric, slice 5): utils/accuracy.run on
+   the rects and natural textures (seed 2026, a 1024² mosaic at 1 m GSD,
+   512² frames, focal 1500 px, altitude 1500 m, capacity 2048 exact,
+   ratio 0.75, 256 homography and 128 PnP hypotheses; 7 conditions) and
+   run_terrain (reliefs 20/60/120 m × nadir / oblique 20°) on the card.
+   The one cut is the scene count: ACC_SCENES = 4 per condition (the
+   reference runner: 12) and ACC_TERRAIN_SCENES = 3 per terrain cell
+   (6). Gates (tests/test_accuracy.py's bounds on the medians): nominal
+   attitude < 1.0°, position < 25 m, footprint < 3 m; oblique20 and rot45
+   < 3° and < 60 m; every terrain cell < 1.5° and < 35 m; at 60 m relief
+   the largest homography footprint error > 0.3 m; ok rate >= 0.75 in
+   every cell. Kernel A 15 and kernel B 2 launches on every frame and in
+   every DB build (its one 1024² LoD-0 tile). The first nominal scene of
+   each texture through the port on the CPU: the same ok flags, rotation
+   within 0.1°, homography-inlier Jaccard >= 0.95. Prints the table per
+   condition, the seconds and frames/s.
+12. Calibration phase (slice 6): 12 varied-pose 7×6 checkerboards
+   rendered with warp_perspective through a known K and distortion (k1
+   0.08); calibrate_from_images on the card: every view found, fx within
+   2%, principal point within 3 px, k1 within 0.02, RMS < 0.2 px; the
+   same views on the CPU give K within 1e-3 relative; the LM loop's steps
+   run under set_sync_debug_mode("error"); undistort_frames on 8 frames
+   of 512², card against CPU within 1e-5; each step's time.
 
 Prints a {"kernels": [...]} JSON line, then as its LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1879,6 +1902,318 @@ def build_kernel_phase(torch, dev):
     return out
 
 
+# ---- slices 5 and 6: the mission metric and calibration ---------------------
+
+ACC_SCENES = 4              # per condition (the reference runner: 12)
+ACC_TERRAIN_SCENES = 3      # per terrain cell (the reference runner: 6)
+ACC_TEXTURES = ("rects", "natural")
+# tests/test_accuracy.py's pinned bounds on the medians.
+ACC_NOMINAL = dict(att=1.0, pos=25.0, fp=3.0)
+ACC_HARD = dict(att=3.0, pos=60.0)              # oblique20 and rot45
+ACC_TERRAIN = dict(att=1.5, pos=35.0)
+ACC_OK_RATE = 0.75
+
+
+def accuracy_phase(torch, dev):
+    """utils/accuracy.run on the rects and natural textures (7 conditions,
+    ACC_SCENES scenes each) and run_terrain (reliefs 20/60/120 m × nadir /
+    oblique 20°, ACC_TERRAIN_SCENES each) at full size on the card, held
+    to tests/test_accuracy.py's bounds; the launches of kernels A and B in
+    each DB build and in the frames; one nominal scene per texture
+    through the port on the CPU against the card."""
+    from cubesat_apds_tpu_torch.utils import accuracy as A
+
+    builds = []                  # [start (s, launches), end (s, launches)]
+
+    def progress(msg):
+        if "building DB" in msg or "DB built" in msg:
+            torch.cuda.synchronize()
+            mark = (time.perf_counter(), _read_launches())
+            if "building DB" in msg:
+                builds.append([mark])
+            else:
+                builds[-1].append(mark)
+        log(f"  {msg}")
+
+    scenes = []
+    _reset_launches()
+    t0 = time.perf_counter()
+    planar = {tex: A.run(ACC_SCENES, texture=tex, progress=progress,
+                         device=dev, scenes=scenes)["exact"]
+              for tex in ACC_TEXTURES}
+    n_planar = len(scenes)
+    terrain = A.run_terrain(ACC_TERRAIN_SCENES, progress=progress,
+                            device=dev, scenes=scenes)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    total = _read_launches()
+    n_frames = len(scenes)
+    build_s = sum(b[1][0] - b[0][0] for b in builds)
+    build_l = {k: sum(b[1][1][k] - b[0][1][k] for b in builds) for k in total}
+    frame_l = {k: total[k] - build_l[k] for k in total}
+    per_frame = {k: v / n_frames for k, v in frame_l.items()}
+    per_build = {k: v / len(builds) for k, v in build_l.items()}
+    frames_s = seconds - build_s
+    log(f"accuracy phase: {n_frames} frames ({n_planar} planar, "
+        f"{n_frames - n_planar} terrain) and {len(builds)} DB builds in "
+        f"{seconds:.2f} s; builds {build_s:.2f} s; frames (render + "
+        f"localize) {frames_s:.2f} s = {n_frames / frames_s:.3f} frames/s")
+    log(f"accuracy launches a frame {per_frame}, a build (one 1024² LoD-0 "
+        f"tile) {per_build}")
+    check(per_frame["fed_cycle"] == 15 and per_frame["sample_patches"] == 2
+          and per_frame["knn2_hamming"] == 0,
+          "every accuracy frame launched kernel A 15 times and kernel B "
+          "twice (dense match: no kernel 4)")
+    check(per_build["fed_cycle"] == 15 and per_build["sample_patches"] == 2,
+          "every accuracy DB build launched kernel A 15 times (its 1024² "
+          "tile) and kernel B twice")
+
+    log("texture  condition   ok    att med / p90 deg    pos med / p90 m  "
+        "  fp med m  inliers")
+    for tex, res in planar.items():
+        for cond, a in res.items():
+            log(f"{tex:8s} {cond:10s} {a['ok_rate']:.2f}  {a['att_med']} / "
+                f"{a['att_p90']}  {a['pos_med']} / {a['pos_p90']}  "
+                f"{a['fp_med']}  {a['inl_med']}")
+    for relief, res in terrain.items():
+        for cond, a in res["exact"].items():
+            log(f"terrain  {relief}/{cond:9s} {a['ok_rate']:.2f}  "
+                f"{a['att_med']} / {a['att_p90']}  {a['pos_med']} / "
+                f"{a['pos_p90']}  {a['fp_med']}  PnP {a['pnp_inl_med']}")
+    for tex, res in planar.items():
+        for cond, a in res.items():
+            check(a["ok_rate"] >= ACC_OK_RATE,
+                  f"{tex} {cond}: ok rate {a['ok_rate']} >= {ACC_OK_RATE}")
+        a = res["nominal"]
+        check(a["att_med"] < ACC_NOMINAL["att"]
+              and a["pos_med"] < ACC_NOMINAL["pos"]
+              and a["fp_med"] < ACC_NOMINAL["fp"],
+              f"{tex} nominal: median attitude {a['att_med']} < 1.0 deg, "
+              f"position {a['pos_med']} < 25 m, footprint {a['fp_med']} "
+              "< 3 m")
+        for cond in ("oblique20", "rot45"):
+            a = res[cond]
+            check(a["att_med"] < ACC_HARD["att"]
+                  and a["pos_med"] < ACC_HARD["pos"],
+                  f"{tex} {cond}: median attitude {a['att_med']} < 3 deg, "
+                  f"position {a['pos_med']} < 60 m")
+    for relief, res in terrain.items():
+        for cond, a in res["exact"].items():
+            check(a["ok_rate"] >= ACC_OK_RATE and a["att_med"] is not None
+                  and a["att_med"] < ACC_TERRAIN["att"]
+                  and a["pos_med"] < ACC_TERRAIN["pos"],
+                  f"terrain {relief} {cond}: ok rate {a['ok_rate']}, median "
+                  f"attitude {a['att_med']} < 1.5 deg, position "
+                  f"{a['pos_med']} < 35 m")
+    fp60 = [r["fp"] for r in scenes
+            if r.get("relief") == 60.0 and r["fp"] is not None]
+    check(fp60 and max(fp60) > 0.3,
+          f"60 m relief: largest homography footprint error "
+          f"{max(fp60, default=0):.3f} m > 0.3 m (the planar model is wrong)")
+    cpu = accuracy_cpu_check(torch, dev)
+    return {"seconds": seconds, "build_s": build_s, "frames": n_frames,
+            "frames_per_s": n_frames / frames_s, "builds": len(builds),
+            "launches_per_frame": per_frame, "launches_per_build": per_build,
+            "planar": planar, "terrain": terrain, "cpu_check": cpu}
+
+
+def accuracy_cpu_check(torch, dev):
+    """The first nominal scene of each texture (the runner's seed and
+    draws), one DB built on the card, the frame rendered on the card: the
+    port on the CPU gives the same ok flags, a rotation within 0.1° and a
+    homography-inlier Jaccard >= 0.95."""
+    from cubesat_apds_tpu_torch.pipelines.localize import Localizer
+    from cubesat_apds_tpu_torch.utils import accuracy as A
+    from cubesat_apds_tpu_torch.utils import synthetic as S
+
+    out = {}
+    for tex in ACC_TEXTURES:
+        mosaic, plane, ds = A.build_world(2026, tex, device=dev)
+        cfg = A.mode_config("exact")
+        store = A.build_db(ds, cfg, progress=lambda s: None)
+        cam = A.scene_camera(mosaic, plane, A._cond_rng(2026, "nominal"), {})
+        frame, _ = S.render_frame(mosaic.bands[0] / 255.0, mosaic.geotransform,
+                                  plane, cam, device=dev)
+        res = {}
+        for d in (dev, "cpu"):
+            loc = Localizer(store, A.camera_model(cam, d), cfg, device=d)
+            t0 = time.perf_counter()
+            res[str(d)] = loc.localize(frame, solve_pose=True)
+            if d == dev:
+                torch.cuda.synchronize()
+            log(f"  {tex} nominal scene on {d}: "
+                f"{time.perf_counter() - t0:.2f} s (first call)")
+        a, b = res[str(dev)], res["cpu"]
+        jac = inlier_jaccard(inlier_pairs(a), inlier_pairs(b))
+        dang = rotation_deg(a.pose.rvec.cpu(), b.pose.rvec)
+        log(f"{tex} nominal, card vs CPU: pose ok {bool(a.pose.ok)} / "
+            f"{bool(b.pose.ok)}, homography ok {bool(a.homography.ok)} / "
+            f"{bool(b.homography.ok)}, inlier Jaccard {jac:.4f}, rotation "
+            f"diff {dang:.5f} deg")
+        check(bool(a.pose.ok) == bool(b.pose.ok)
+              and bool(a.homography.ok) == bool(b.homography.ok),
+              f"{tex}: card and CPU ok flags agree")
+        check(jac >= 0.95, f"{tex}: card and CPU homography-inlier Jaccard "
+              ">= 0.95")
+        check(dang <= 0.1, f"{tex}: card and CPU rotations within 0.1 deg")
+        out[tex] = {"jaccard": jac, "rotation_deg": dang}
+    return out
+
+
+CAL_K = np.array([[600.0, 0.0, 320.0], [0.0, 580.0, 240.0], [0.0, 0.0, 1.0]])
+CAL_DIST = np.array([0.08, -0.02, 0.0, 0.0, 0.0])
+CAL_VIEWS = 12
+CAL_GRID = (7, 6)
+CAL_SQUARE_PX = 48          # texture pixels a board square
+
+
+def calibration_boards(torch, dev, rng, n=CAL_VIEWS, hw=(480, 640)):
+    """n views of a 7×6-corner checkerboard at varied poses (tilts of
+    ~0.25 rad, in-plane turns of ~0.15 rad, 14–18 squares away, shifted
+    about the frame; identical views would degenerate Zhang's method),
+    through CAL_K and CAL_DIST: the board texture warped by K·[r1 r2 t]
+    with warp_perspective, then distorted by sampling the ideal image
+    where each distorted pixel undistorts to."""
+    from cubesat_apds_tpu_torch.core.camera import pixels_to_normalized
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.ops.geometry.rodrigues import (
+        rodrigues_to_matrix)
+    from cubesat_apds_tpu_torch.ops.warp import (
+        bilinear_sample, warp_perspective)
+
+    nx, ny = CAL_GRID
+    s = CAL_SQUARE_PX
+    tex = np.full(((ny + 5) * s, (nx + 5) * s), 0.9, np.float32)
+    for r in range(ny + 1):
+        for c in range(nx + 1):
+            if (r + c) % 2 == 0:
+                tex[(r + 2) * s:(r + 3) * s, (c + 2) * s:(c + 3) * s] = 0.1
+    # Board units (one square; inner corner (i, j) at (i, j)) → texture px.
+    to_tex = np.array([[s, 0, 3 * s - 0.5], [0, s, 3 * s - 0.5], [0, 0, 1]])
+    tex_t = torch.from_numpy(tex).to(dev)
+    cam = CameraModel(K=torch.tensor(CAL_K, dtype=torch.float32, device=dev),
+                      dist=torch.tensor(CAL_DIST, dtype=torch.float32,
+                                        device=dev))
+    h, w = hw
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    xy_u = pixels_to_normalized(torch.stack([gx, gy], -1), cam)
+    src = torch.stack([CAL_K[0, 0] * xy_u[..., 0] + CAL_K[0, 2],
+                       CAL_K[1, 1] * xy_u[..., 1] + CAL_K[1, 2]], -1)
+    views = []
+    for _ in range(n):
+        rv = np.array([rng.normal(0, 0.25), rng.normal(0, 0.25),
+                       rng.normal(0, 0.15)])
+        R = rodrigues_to_matrix(torch.tensor(rv)).numpy()
+        t = np.array([rng.uniform(-6.0, 0.0), rng.uniform(-5.0, 0.0),
+                      rng.uniform(14.0, 18.0)])
+        H = CAL_K @ np.c_[R[:, 0], R[:, 1], t] @ np.linalg.inv(to_tex)
+        ideal = warp_perspective(tex_t, torch.tensor(H, dtype=torch.float32),
+                                 hw, 0.9)
+        views.append(bilinear_sample(ideal, src, 0.9).cpu().numpy())
+    return views
+
+
+def calibration_phase(torch, dev, card):
+    """Zhang + LM calibration on the card from CAL_VIEWS rendered boards
+    (every view found; fx within 2%, principal point within 3 px, k1
+    within 0.02, RMS < 0.2 px: tests/test_calibration.py's bounds); the
+    same views on the CPU give K within 1e-3 relative; the LM loop runs
+    under set_sync_debug_mode("error"); undistort_frames on 8 frames of
+    512², card against CPU within 1e-5."""
+    from cubesat_apds_tpu_torch.core.config import CalibConfig
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.ops.geometry import calibration as C
+    from cubesat_apds_tpu_torch.ops.warp import undistort_frames
+    from cubesat_apds_tpu_torch.pipelines.calibrate import (
+        calibrate_from_images, format_report)
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    views = calibration_boards(torch, dev, rng)
+    render_s = time.perf_counter() - t0
+    times = {"render_s": render_s}
+    for label, d in (("first", dev), ("warm", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        res, found = calibrate_from_images(views, CAL_GRID, device=d)
+        K = res.camera.K.cpu().numpy()
+        times[f"calibrate_{label}_s"] = time.perf_counter() - t0
+        if label == "warm":
+            res_card, found_card, K_card = res, found, K
+    K_cpu = K
+    log(f"calibration ({card}): {CAL_VIEWS} views rendered in "
+        f"{render_s:.3f} s; calibrate_from_images on the card "
+        f"{times['calibrate_first_s']:.3f} s (first call), "
+        f"{times['calibrate_warm_s']:.3f} s (warm); on the CPU "
+        f"{times['calibrate_cpu_s']:.3f} s")
+    log(format_report(res_card))
+    d = res_card.camera.dist.cpu().numpy()
+    check(bool(found_card.all()), f"corners found in all {CAL_VIEWS} views")
+    check(bool(res_card.ok), "calibration ok")
+    check(abs(K_card[0, 0] / CAL_K[0, 0] - 1) < 0.02
+          and abs(K_card[1, 1] / CAL_K[1, 1] - 1) < 0.02,
+          f"fx, fy {K_card[0, 0]:.3f}, {K_card[1, 1]:.3f} within 2% of "
+          f"{CAL_K[0, 0]}, {CAL_K[1, 1]}")
+    check(abs(K_card[0, 2] - CAL_K[0, 2]) < 3 and
+          abs(K_card[1, 2] - CAL_K[1, 2]) < 3,
+          f"principal point ({K_card[0, 2]:.3f}, {K_card[1, 2]:.3f}) within "
+          "3 px")
+    check(abs(d[0] - CAL_DIST[0]) < 0.02,
+          f"k1 {d[0]:.4f} within 0.02 of {CAL_DIST[0]}")
+    check(float(res_card.rms) < 0.2, f"RMS {float(res_card.rms):.4f} px < 0.2")
+    rel = float(np.abs(K_card - K_cpu).max() / np.abs(K_cpu).max())
+    check(rel < 1e-3, f"card and CPU K within 1e-3 relative ({rel:.2e})")
+
+    # The LM loop queues work only: its steps from a perturbed start on the
+    # card's own solution, under set_sync_debug_mode("error").
+    cfg = CalibConfig()
+    obj = C.planar_grid(*CAL_GRID, device=dev)
+    Kd = res_card.camera.K
+    params = torch.cat([
+        torch.stack([Kd[0, 0], Kd[1, 1], Kd[0, 2], Kd[1, 2], Kd[0, 1]]),
+        res_card.camera.dist,
+        torch.cat([res_card.rvecs, res_card.tvecs], -1).reshape(-1)])
+    pts = C._project(params, obj, CAL_VIEWS)
+    w = torch.ones(pts.numel() // 2, device=dev)
+    start = params * 1.001
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        C._levenberg_marquardt(start, obj, pts, w, cfg.lm_iters,
+                               cfg.lm_lambda0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    times["lm_queue_s"] = queued_s
+    times["lm_s"] = time.perf_counter() - t0
+    check(True, f"the LM loop's {cfg.lm_iters} steps ran under "
+          f"set_sync_debug_mode('error'): queued in {queued_s:.3f} s, "
+          f"done in {times['lm_s']:.3f} s")
+
+    camera = CameraModel(K=torch.tensor(K_card), dist=res_card.camera.dist.cpu())
+    frames = np.stack([make_frame(rng) for _ in range(8)])
+    ft = torch.from_numpy(frames).to(dev)
+    cam_d = CameraModel(K=camera.K.to(dev), dist=camera.dist.to(dev))
+    got = undistort_frames(ft, cam_d)
+    want = undistort_frames(torch.from_numpy(frames), camera)
+    err = float((got.cpu() - want).abs().max())
+    und_ms = cuda_ms(torch, lambda: undistort_frames(ft, cam_d), reps=10)
+    und_dev_ms = graph_ms(torch, lambda: undistort_frames(ft, cam_d), reps=10)
+    bound_ms = 2 * ft.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"undistort_frames, 8 × 512² ({card}): {und_ms:.4f} ms a call "
+        f"(eager), device {und_dev_ms:.4f} ms (CUDA-graph replays), byte "
+        f"bound {bound_ms:.4f} ms; card against CPU max |diff| {err:.3g}")
+    check(err <= 1e-5, "undistort_frames card and CPU within 1e-5")
+    times["undistort_8x512_ms"] = und_ms
+    times["undistort_8x512_device_ms"] = und_dev_ms
+    return {"K": K_card.tolist(), "dist": d.tolist(),
+            "rms": float(res_card.rms), "K_rel_cpu": rel,
+            "undistort_max_err": err, **times}
+
+
 def profile_step(torch, step, out_dir, name, frames_per_step=1):
     """torch.profiler over one warmed step: a table by kernel and a Chrome
     trace in out_dir, and the step's device-busy time and kernel count."""
@@ -1977,6 +2312,8 @@ def main(argv=None):
         tiled = tiled_phase(torch, dev, terrain, image)
         part_a = sync_phase(torch, dev, loc10k, frame_t, image)
         del loc10k, image, terrain
+        accuracy = accuracy_phase(torch, dev)
+        calibration = calibration_phase(torch, dev, card)
         launches = dict(launches, knn2_hamming=big_launches["knn2_hamming"])
         for k in kernels:
             name = k["name"]
@@ -1987,6 +2324,10 @@ def main(argv=None):
             k["build_launches_per_batch"] = db_build["launches_per_batch"][name]
             k["serve_check_launches"] = serve["launches"][name]
             k["tiled_8192_launches"] = tiled["launches"][name]
+            k["accuracy_launches_per_frame"] = \
+                accuracy["launches_per_frame"][name]
+            k["accuracy_launches_per_build"] = \
+                accuracy["launches_per_build"][name]
         kernels[0]["batch8_device_ms_per_frame"] = a_batch_ms
         kernels[1]["batch8_device_ms_per_frame"] = b_batch_ms
         kernels[0]["build_tile_b8_device_ms"] = build_kernels["256_b8_device_ms"]
@@ -2004,6 +2345,14 @@ def main(argv=None):
             f"tiled 8192² {tiled['tiled_8192_s']:.3f} s, sweep ms "
             f"{tiled['sweep_ms']}; per-keypoint stages "
             f"{part_a['per_keypoint_stages']}")
+        log(f"card: {card} — accuracy phase {accuracy['seconds']:.2f} s "
+            f"({accuracy['frames']} frames, {accuracy['frames_per_s']:.3f} "
+            f"frames/s with rendering, {accuracy['builds']} builds in "
+            f"{accuracy['build_s']:.2f} s); calibration: render "
+            f"{calibration['render_s']:.3f} s, calibrate "
+            f"{calibration['calibrate_warm_s']:.3f} s warm, RMS "
+            f"{calibration['rms']:.4f} px, undistort 8 × 512² "
+            f"{calibration['undistort_8x512_ms']:.4f} ms")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

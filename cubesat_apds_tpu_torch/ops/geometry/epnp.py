@@ -13,6 +13,7 @@ import torch
 from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
     cholesky_solve, det3x3, eigh3x3, eigh_smallest, lstsq_normal,
     polar_rotation)
+from cubesat_apds_tpu_torch.ops.geometry.rodrigues import matrix_to_rodrigues
 
 # Control-point distance constraint index pairs (6 pairs of 4 points).
 _PAIRS = np.array([(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)])
@@ -187,3 +188,9 @@ def epnp(obj_points, img_points_normalized, weights=None,
     ok = torch.isfinite(err_best) & (ortho_err < 0.1) \
         & ((det3x3(R_best) - 1.0).abs() < 0.5)
     return R_best, t_best, ok
+
+
+def epnp_rvec_tvec(obj_points, img_points_normalized, weights=None):
+    """EPnP as (rvec, tvec, ok)."""
+    R, t, ok = epnp(obj_points, img_points_normalized, weights)
+    return matrix_to_rodrigues(R), t, ok

@@ -1,6 +1,7 @@
 """Planar PnP: pose from (near-)coplanar points by homography
-decomposition, and the two scaled-orthographic (POS) candidates (port
-of ops/geometry/planar.py). Both batch over leading dimensions.
+decomposition, and the scaled-orthographic (POS) pose and its two
+candidates (port of ops/geometry/planar.py). All batch over leading
+dimensions.
 """
 
 from __future__ import annotations
@@ -130,3 +131,32 @@ def ortho_pose_candidates(obj_points, img_points_normalized, weights=None):
     ok = (torch.isfinite(R2).flatten(-3).all(-1)
           & torch.isfinite(t2).flatten(-2).all(-1) & (s > 0))
     return R2, t2, ok
+
+
+def ortho_pose(obj_points, img_points_normalized, weights=None):
+    """Weak-perspective (scaled-orthographic / POS) pose: the candidate of
+    ortho_pose_candidates with the lower weighted perspective
+    reprojection error (points behind the camera cost 1e12 each).
+
+    The nadir-looking limit: when scene depth ≪ camera distance the image
+    is an affine function of the world points and every perspective
+    minimal solver degenerates. Returns (R [..., 3, 3], t [..., 3], ok);
+    as in the JAX package, ok requires both candidates finite.
+    """
+    obj = obj_points
+    uv = img_points_normalized.to(obj.dtype)
+    w = _weights(obj, weights)
+    R2, t2, ok = ortho_pose_candidates(obj, uv, w)
+
+    def werr(R, t):
+        cam = obj @ R.transpose(-1, -2) + t[..., None, :]
+        z = torch.where(cam[..., 2].abs() < 1e-12, 1e-12, cam[..., 2])
+        e = ((cam[..., :2] / z[..., None] - uv) ** 2).sum(-1)
+        e = torch.where(cam[..., 2] <= 0, 1e12, e)
+        return (e * w).sum(-1)
+
+    use_b = werr(R2[..., 1, :, :], t2[..., 1, :]) \
+        < werr(R2[..., 0, :, :], t2[..., 0, :])
+    R = torch.where(use_b[..., None, None], R2[..., 1, :, :], R2[..., 0, :, :])
+    t = torch.where(use_b[..., None], t2[..., 1, :], t2[..., 0, :])
+    return R, t, ok

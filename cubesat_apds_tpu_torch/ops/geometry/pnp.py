@@ -1,5 +1,5 @@
-"""PnP-RANSAC: robust 6-DoF pose from 3D–2D correspondences (port of
-ops/geometry/pnp.py:solve_pnp_ransac).
+"""PnP-RANSAC and plain PnP: 6-DoF pose from 3D–2D correspondences (port
+of ops/geometry/pnp.py: solve_pnp_ransac, solve_pnp).
 
 A fixed batch of minimal samples, each solved by EPnP and the planar
 solver, plus the two global weak-perspective candidates; the optional
@@ -185,3 +185,38 @@ def solve_pnp_ransac(corr: Correspondences, camera: CameraModel,
     tvec = scale * tvec - R_final @ c_obj
     return PoseSolution(rvec=rvec, tvec=tvec, inliers=inliers,
                         num_inliers=num_inl, ok=ok)
+
+
+def solve_pnp(corr: Correspondences, camera: CameraModel,
+              refine_iters: int = 10) -> PoseSolution:
+    """Non-robust PnP (every valid point taken as an inlier): the better of
+    EPnP and the planar solver by weighted reprojection error, polished
+    by Gauss-Newton, in the zero-centroid / unit-RMS world frame of
+    solve_pnp_ransac."""
+    obj = corr.obj_points.to(torch.float32)
+    pix = corr.img_points.to(torch.float32)
+    uv_n = pixels_to_normalized(pix, camera)
+    w = corr.valid.to(torch.float32)
+    nw = w.sum().clamp(min=1.0)
+    c_obj = (obj * w[:, None]).sum(0) / nw
+    centered = (obj - c_obj) * w[:, None]
+    scale = torch.sqrt((centered * centered).sum() / nw).clamp(min=1e-12)
+    obj = (obj - c_obj) / scale
+    R, t, ok = epnp(obj, uv_n, w)
+    Rp, tp, okp = planar_pose(obj, uv_n, w)
+
+    def werr(R, t):
+        e = _reproj_err_normalized(R, t, obj, uv_n)
+        return (torch.where(torch.isfinite(e), e, 1e12) * w).sum()
+
+    use_p = okp & ((~ok) | (werr(Rp, tp) < werr(R, t)))
+    R = torch.where(use_p, Rp, R)
+    t = torch.where(use_p, tp, t)
+    ok = ok | okp
+    rvec, tvec = _gn_refine_pose(matrix_to_rodrigues(R), t, obj, uv_n, w,
+                                 refine_iters)
+    tvec = scale * tvec - rodrigues_to_matrix(rvec) @ c_obj
+    num_valid = corr.valid.sum(dtype=torch.int32)
+    return PoseSolution(rvec=rvec, tvec=tvec, inliers=corr.valid,
+                        num_inliers=num_valid,
+                        ok=ok & (num_valid >= 4) & torch.isfinite(rvec).all())

@@ -246,8 +246,8 @@ def test_store_level_calls_load_the_lod(scene, tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the store, utils, stream, IO,
-    image and DB-build modules among them) pulls in no jax and nothing of
-    cubesat_apds_tpu."""
+    image, DB-build, accuracy and calibration modules among them) pulls in
+    no jax and nothing of cubesat_apds_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cubesat_apds_tpu_torch as p\n"
@@ -259,7 +259,10 @@ def test_port_imports_no_jax():
         "        'store.native', 'core.geodesy', 'utils.profiling',\n"
         "        'pipelines.stream', 'pipelines.localize',\n"
         "        'pipelines.preprocess', 'ops.image', 'ops.resample',\n"
-        "        'io', 'io.tiff', 'io.cog', 'io.mosaic', 'io.native'}\n"
+        "        'io', 'io.tiff', 'io.cog', 'io.mosaic', 'io.native',\n"
+        "        'ops.warp', 'core.attitude', 'utils.synthetic',\n"
+        "        'utils.accuracy', 'ops.geometry.calibration',\n"
+        "        'ops.geometry.chessboard', 'pipelines.calibrate'}\n"
         "missing = {w for w in want if p.__name__ + '.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
