@@ -123,6 +123,37 @@
    same views on the CPU give K within 1e-3 relative; the LM loop's steps
    run under set_sync_debug_mode("error"); undistort_frames on 8 frames
    of 512², card against CPU within 1e-5; each step's time.
+13. Mesh phase (slice 7, one card: a mesh's slots all on cuda:0; it runs
+   after the stream phase): (a) the big DB's 1,048,576 rows, and a
+   ragged 1,000,003-row cut of it padded to a tp multiple, against the
+   frame's 2,048 queries through make_sharded_knn2_fused at tp = 2 and 4:
+   kernel 4 launched once per shard, (d0, d1, i0) bit-equal to one launch
+   over the whole DB, ms per call and the merge's share; the dense maker
+   on 10,240 rows against ops.match.knn2; the tp = 4 call under
+   set_sync_debug_mode("error"). (b) make_batch_localizer at dp 2 × tp 2
+   on the stream's 8 pool frames against the big DB: every frame's packed
+   outputs bit-equal to the lone step's; launches of A, B and 4 per batch
+   (30, 4, 4); frames/s. (c) StreamingLocalizer(mesh=dp 2 × tp 2) over
+   the stream phase's 1M binary store at batch 8: every frame equal to the
+   batch-8 stream's without a mesh; frames/s, latency p50/p95 in s and in
+   steps. (d) preprocess(mesh=dp 2) on a 2048² crop of the build image,
+   amount_lod 3: the store equal to the single-device build bit for bit.
+   (e) two child processes share the card over gloo, two slots each, one
+   global mesh of four: the sharded kNN-2 (dp 1 × tp 4) and the serve
+   step (dp 2 × tp 2, 4 frames) give each the single-process results; a
+   child that fails or outlasts 300 s fails the phase.
+14. Modes phase (slice 8): (a) bench.py's 512² frame through
+   detect_and_compute in fast, hybrid (sub 2) and hybrid (sub 3): card
+   against CPU bit for bit (keypoints, angles, descriptors); kernel A 15
+   and B 4 launches a frame, every kernel-B launch (S = 57 fast
+   orientation, one a grid at S = 4/9/16, 16/36/64, 36/81/144) bit-exact
+   with its twin; the per-keypoint stages' device time against exact.
+   (b) the 10k slice step in each mode against a DB of the port's own
+   features in that mode: median of 10 steps, the (13, 7) shift, inlier
+   Jaccard against exact. (c) accuracy.run on rects nominal and oblique20,
+   4 scenes each, in fast and hybrid: tests/test_accuracy.py's bounds.
+   (d) a store built in fast mode: check_descriptor_mode accepts fast and
+   refuses exact, and the store serves a nominal frame.
 
 Prints a {"kernels": [...]} JSON line, then as its LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -824,20 +855,17 @@ def inlier_ids(res, sel=None):
     return set(ids.tolist())
 
 
-def bigdb_phase(torch, dev, profile_dir):
-    """bench_localize_bigdb.py's scene, made on the card, through
-    Localizer.localize (the kNN-2 kernel with the DB's layout)."""
-    import dataclasses
-
-    from cubesat_apds_tpu_torch.core.types import CameraModel
+def big_db_scene(torch, dev, config):
+    """bench_localize_bigdb.py's scene made on `dev` from seed 42: the
+    port's features of bench.py's frame rolled by (7, 13) (2,048 rows),
+    then uniform random filler from a seeded torch.Generator to
+    1,048,576 rows, xy over [0, 8192)², world points (xy, 0). Returns
+    (DeviceDb, the frame as a host tensor); every process that calls it
+    on the same card gets the same bits."""
     from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
-    from cubesat_apds_tpu_torch.pipelines.localize import (
-        DeviceDb, Localizer, localize_from_features)
+    from cubesat_apds_tpu_torch.pipelines.localize import DeviceDb
 
-    config = serving_config()
     frame = make_frame(np.random.default_rng(SEED))
-    frame_t = torch.from_numpy(frame)
-    t0 = time.perf_counter()
     feats = detect_and_compute(
         torch.from_numpy(np.roll(frame, (7, 13), axis=(0, 1))).to(dev),
         config.akaze)
@@ -851,13 +879,28 @@ def bigdb_phase(torch, dev, profile_dir):
     xy[:n_real] = feats.keypoints.xy
     valid[:n_real] = feats.keypoints.valid
     obj = torch.cat([xy, torch.zeros((m, 1), device=dev)], dim=1)
-    db = DeviceDb(descriptors=desc, xy=xy, valid=valid, obj_points=obj,
-                  has_world=True)
+    return DeviceDb(descriptors=desc, xy=xy, valid=valid, obj_points=obj,
+                    has_world=True), torch.from_numpy(frame)
+
+
+def bigdb_phase(torch, dev, profile_dir):
+    """bench_localize_bigdb.py's scene, made on the card, through
+    Localizer.localize (the kNN-2 kernel with the DB's layout)."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        Localizer, localize_from_features)
+
+    config = serving_config()
+    t0 = time.perf_counter()
+    db, frame_t = big_db_scene(torch, dev, config)
     camera = CameraModel.ideal(500.0, 500.0, 256.0, 256.0)
     loc = Localizer(db, camera, config, device=dev)
     torch.cuda.synchronize()
-    log(f"big DB: {m} rows ({n_real} real, "
-        f"{int(feats.keypoints.valid.sum())} valid) built with its kNN-2 "
+    log(f"big DB: {BIG_DB_ROWS} rows (2048 real, "
+        f"{int(db.valid[:2048].sum())} valid) built with its kNN-2 "
         f"layout in {time.perf_counter() - t0:.2f} s")
     check(loc.db.match_layout is not None, "Localizer made the kNN-2 layout")
 
@@ -1155,7 +1198,7 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
                                               ": " + "; ".join(bad[:5])))
     return {"frames_per_s": fps, "ms_per_frame": wall / len(results) * 1e3,
             "launches_per_batch": {k: v / steps for k, v in launches.items()},
-            "fallback_frames": s.fallback_frames}
+            "fallback_frames": s.fallback_frames, "results": results}
 
 
 def stream_phase(torch, dev, profile_dir):
@@ -1255,7 +1298,12 @@ def stream_phase(torch, dev, profile_dir):
             s._step(x)                                      # warm-up
             profile_step(torch, lambda: s._step(x), profile_dir,
                          f"stream_b{b}", frames_per_step=b)
-    return out
+    ctx = {"db1m": dbbig, "frames": frames, "shifts": shifts, "pool": pool,
+           "camera": camera,
+           "b8_results": out["1M store, full DB, batch 8"].pop("results")}
+    for r in out.values():
+        r.pop("results", None)
+    return out, ctx
 
 
 # ---- Part A: the feature step reads nothing back to the host --------------
@@ -1335,7 +1383,7 @@ def sync_phase(torch, dev, loc, frame_t, image):
     stages = {}
     for label, x, akaze in cases:
         cap = akaze.capacity
-        kps, packed, level_hw = _front_end(x, akaze, cap, None)
+        kps, packed, level_hw, _ = _front_end(x, akaze, cap, None)
         n_live = int(kps.valid.sum(-1).max())
         full = orient_describe(kps, packed, level_hw, cap)
         pre = orient_describe(kps, packed, level_hw, n_live)
@@ -2214,6 +2262,626 @@ def calibration_phase(torch, dev, card):
             "undistort_max_err": err, **times}
 
 
+# ---- slice 7: the device mesh on one card ----------------------------------
+
+MESH_CHILD_TIMEOUT_S = 300
+
+
+def _packed(torch, homog, pose, n_match, n_kp, b):
+    from cubesat_apds_tpu_torch.core.types import select
+    from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
+
+    return _pack_outputs(select(homog, b), n_match[b], n_kp[b],
+                         None if pose is None else select(pose, b))
+
+
+def mesh_knn(torch, dev, db, q_desc):
+    """(a): the big DB's 1,048,576 rows and a ragged 1,000,003-row cut of
+    it (~5% invalid, padded with invalid rows to a tp multiple) against
+    the frame's 2,048 queries through make_sharded_knn2_fused at tp = 2
+    and 4 on slots of one card: tp kernel-4 launches per call, (d0, d1,
+    i0) bit-equal to one kernel-4 launch over the whole DB; the dense
+    maker on 10,240 rows against ops.match.knn2; the tp = 4 call again
+    under set_sync_debug_mode("error"). Returns the numbers and the tp = 4
+    result on the full DB (the two-process reference)."""
+    from cubesat_apds_tpu_torch.ops import match as M
+    from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.parallel.sharded_match import (
+        make_sharded_knn2, make_sharded_knn2_fused, merge_columns)
+
+    q_bits = M.unpack_bits(q_desc)
+    q_words = tmk.pack_words(q_desc)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    m_rag = BIG_DB_ROWS - 48_573                    # 1,000,003
+    valid_rag = db.valid[:m_rag] & (torch.rand(m_rag, generator=gen,
+                                               device=dev) >= 0.05)
+    out, ref_tp4 = {}, None
+    for label, desc, valid in (("1M", db.descriptors, db.valid),
+                               ("ragged 1,000,003", db.descriptors[:m_rag],
+                                valid_rag)):
+        one = tmk.knn2_hamming_cuda(q_words, *tmk.layout_db_blocks(
+            tmk.pack_words(desc), valid))
+        for tp in (2, 4):
+            pad = (-desc.shape[0]) % tp
+            d_p = torch.cat([desc, desc.new_zeros((pad, 61))])
+            v_p = torch.cat([valid, valid.new_zeros(pad)])
+            mesh = make_mesh(dp=1, tp=tp, devices=[dev] * tp)
+            fn = make_sharded_knn2_fused(mesh, db_block=65536)
+            placed = fn.place(d_p, v_p)
+            fn(q_bits, placed)                              # warm-up
+            torch.cuda.synchronize()
+            _reset_launches()
+            got = fn(q_bits, placed)
+            torch.cuda.synchronize()
+            launches = _read_launches()["knn2_hamming"]
+            same = [torch.equal(g, r) for g, r in zip(got, one)]
+            check(launches == tp, f"sharded kNN-2 {label}, tp={tp} (+{pad} "
+                  f"pad rows): kernel 4 launched {launches} times, once "
+                  f"per shard")
+            check(all(same), f"sharded kNN-2 {label}, tp={tp}: d0, d1, i0 "
+                  f"bit-equal to one kernel-4 launch over the whole DB")
+            ms = cuda_ms(torch, lambda: fn(q_bits, placed), reps=5, rounds=3)
+            partials = fn.partials(q_bits, placed)
+            merge_ms = cuda_ms(torch, lambda: merge_columns(
+                tp, partials, placed.shape[0] // tp, q_bits.shape[0], dev),
+                reps=5, rounds=3)
+            log(f"  {label}, tp={tp}: {ms:.4f} ms per call, merge "
+                f"{merge_ms:.4f} ms ({merge_ms / ms:.1%} of it)")
+            out[f"{label} tp{tp}"] = {"ms": ms, "merge_ms": merge_ms,
+                                      "launches": launches}
+            if label == "1M" and tp == 4:
+                ref_tp4 = [t.cpu() for t in got]
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    fn(q_bits, placed)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                check(True, "sharded kNN-2 + merge (tp=4) ran under "
+                      "set_sync_debug_mode('error')")
+    small = M.unpack_bits(db.descriptors[:10240])
+    dense = make_sharded_knn2(make_mesh(dp=1, tp=4, devices=[dev] * 4))(
+        q_bits, small, db.valid[:10240])
+    one = M.knn2(q_bits, small, db_valid=db.valid[:10240])
+    check(all(torch.equal(g, r) for g, r in zip(dense, one)),
+          "dense sharded kNN-2, 10,240 rows at tp=4: bit-equal to "
+          "ops.match.knn2")
+    return out, ref_tp4
+
+
+def mesh_serve(torch, dev, loc, pool, config):
+    """(b): make_batch_localizer at dp = 2 × tp = 2 on the 8 pool frames
+    against the big DB: each frame's packed outputs bit-equal to the lone
+    Localizer step's; launches of A, B and 4 per batch; frames/s."""
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.parallel.serve import (
+        make_batch_localizer, shard_device_db)
+    from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
+
+    mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
+    mdb = shard_device_db(mesh, loc.db, match_config=config.match)
+    check(mdb.fused and len({id(v[0]) for v in mdb.shards.parts.values()})
+          == 2, "mesh DB: one kernel-4 layout per shard, made at placement")
+    step = make_batch_localizer(mesh, loc.camera, config, solve_pose=True)
+    frames = torch.stack([torch.from_numpy(f) for f in pool]).to(dev) / 255.0
+    step(frames, mdb)                                       # warm-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    homog, pose, n_match, n_kp = step(frames, mdb)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    log(f"serve step dp=2 x tp=2, batch {len(pool)}: launches {launches}")
+    check(launches == {"fed_cycle": 30, "sample_patches": 4,
+                       "knn2_hamming": 4},
+          "serve step: kernel A 15 and B 2 per dp row, kernel 4 once per "
+          "shard per row")
+    same = []
+    for b in range(len(pool)):
+        r = loc.localize(frames[b])
+        want = _pack_outputs(r.homography, r.num_matches, r.num_keypoints,
+                             r.pose)
+        same.append(torch.equal(_packed(torch, homog, pose, n_match, n_kp,
+                                        b), want))
+    check(all(same), f"serve step: every frame's packed outputs bit-equal "
+          f"to the lone step's ({sum(same)} of {len(same)})")
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(frames, mdb)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    fps = len(pool) / float(np.median(secs))
+    log(f"serve step dp=2 x tp=2: median {np.median(secs) * 1e3:.2f} ms a "
+        f"batch of {len(pool)} = {fps:.2f} frames/s")
+    per_batch = dict(launches)
+    return {"frames_per_s": fps, "launches_per_batch": per_batch}
+
+
+def mesh_stream(torch, dev, ctx, config):
+    """(c): StreamingLocalizer(mesh=dp 2 × tp 2) over the stream phase's
+    1M binary store at batch 8: every frame's packed outputs equal the
+    batch-8 stream's without a mesh; frames/s, latency p50/p95."""
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.pipelines.stream import StreamingLocalizer
+
+    mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
+    b = STREAM_BATCH
+    s = StreamingLocalizer(ctx["db1m"], ctx["camera"], config,
+                           solve_pose=True, prefetch=2 * b, batch=b,
+                           mesh=mesh)
+    frames = ctx["frames"]
+    list(s.run(frames[:b]))                                 # warm-up
+    torch.cuda.synchronize()
+    s.times = type(s.times)()
+    _reset_launches()
+    t0 = time.perf_counter()
+    results = list(s.run(frames))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    steps = -(-len(frames) // b)
+
+    def packed(r):
+        return np.concatenate([r.homography.reshape(-1), [
+            r.homography_ok, r.num_inliers, r.num_matches, r.num_keypoints],
+            r.rvec, r.tvec, [r.pose_ok, r.pose_num_inliers]])
+
+    check([r.frame_id for r in results] == list(range(len(frames))),
+          f"mesh stream: {len(frames)} frames back, in order")
+    check(launches == {"fed_cycle": 30 * steps, "sample_patches": 4 * steps,
+                       "knn2_hamming": 4 * steps},
+          f"mesh stream: kernel A 30, B 4 and kernel 4 4 launches a batch "
+          f"({launches} for {steps} batches)")
+    same = [np.array_equal(packed(r), packed(w))
+            for r, w in zip(results, ctx["b8_results"])]
+    check(all(same), f"mesh stream: every frame equals the batch-8 stream's "
+          f"without a mesh ({sum(same)} of {len(same)})")
+    lat = sorted(r.latency_s for r in results)
+    step_s = wall / steps
+    p50, p95 = lat[len(lat) // 2], lat[int(0.95 * len(lat)) - 1]
+    fps = len(results) / wall
+    log(f"mesh stream dp=2 x tp=2, batch {b}: {len(results)} frames in "
+        f"{wall:.3f} s = {fps:.2f} frames/s; latency p50 {p50:.3f} s "
+        f"({p50 / step_s:.2f} steps), p95 {p95:.3f} s ({p95 / step_s:.2f} "
+        f"steps); launches per batch "
+        f"{ {k: v / steps for k, v in launches.items()} }")
+    return {"frames_per_s": fps, "p50_s": p50, "p95_s": p95,
+            "p50_steps": p50 / step_s, "p95_steps": p95 / step_s,
+            "launches_per_batch": {k: v / steps
+                                   for k, v in launches.items()}}
+
+
+def mesh_preprocess(torch, dev, image):
+    """(d): preprocess(mesh = dp 2) on a 2048² crop of the build mosaic,
+    amount_lod 3: the store equals the single-device build, row for row."""
+    import os
+
+    from cubesat_apds_tpu_torch.core.config import PipelineConfig
+    from cubesat_apds_tpu_torch.io.mosaic import MosaicDataset
+    from cubesat_apds_tpu_torch.io.tiff import write_geotiff
+    from cubesat_apds_tpu_torch.ops.image import lod_tile_grid
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.pipelines.preprocess import preprocess
+
+    with tempfile.TemporaryDirectory() as root:
+        crop = image[:2048, :2048]
+        rgb = np.round(np.stack([crop, 0.85 * crop + 0.1, 0.7 * crop + 0.2],
+                                -1) * 255).astype(np.uint8)
+        write_geotiff(os.path.join(root, "c.tif"), rgb,
+                      [10.0, PX_DEG, 0.0, 56.0, 0.0, -PX_DEG])
+        ds = MosaicDataset.from_folder(root, device=dev)
+        config = PipelineConfig()
+        ref, ref_stats = preprocess(ds, config=config, amount_lod=3,
+                                    tile_batch=BUILD_BATCH)
+        mesh = make_mesh(dp=2, tp=1, devices=[dev] * 2)
+        _reset_launches()
+        t0 = time.perf_counter()
+        got, stats = preprocess(ds, config=config, amount_lod=3,
+                                tile_batch=BUILD_BATCH, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _read_launches()
+    same = (all(np.array_equal(ref._kp[k], got._kp[k]) for k in ref._kp)
+            and np.array_equal(ref._desc, got._desc))
+    batches = sum(-(-len(g[4]) * len(g[5]) // BUILD_BATCH)
+                  for g in lod_tile_grid(2048, 2048, 3))
+    log(f"preprocess(mesh=dp 2) of a 2048² crop, 3 LoDs: {stats.tiles} "
+        f"tiles in {batches} batches, {stats.keypoints} keypoints in "
+        f"{secs:.2f} s; launches {launches}")
+    check(launches == {"fed_cycle": 30 * batches,
+                       "sample_patches": 4 * batches, "knn2_hamming": 0},
+          "preprocess(mesh=dp 2): kernel A 15 and B 2 launches per dp row "
+          "of each tile batch")
+    check(stats.keypoints == ref_stats.keypoints > 0 and same,
+          "preprocess(mesh=dp 2): the store equals the single-device "
+          "build bit for bit")
+    return {"seconds": secs, "tiles": stats.tiles, "launches": launches}
+
+
+def mesh_child(device="cuda:0"):
+    """One of the two processes of the mesh phase's part (e): joins the
+    gloo group from the APDS_* variables with two slots on `device`, runs
+    the sharded kNN-2 (dp 1 × tp 4) and the serve step (dp 2 × tp 2, four
+    frames) on the big DB, and saves what it got to $APDS_OUT<rank>.npz."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from cubesat_apds_tpu_torch.parallel.mesh import initialize_distributed
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not initialize_distributed():
+        raise SmokeFailure("mesh child without APDS_* configuration")
+    config = serving_config()
+    db, frame_t = big_db_scene(torch, dev, config)
+    out = mesh_two_process_outputs(torch, dev, db, frame_t, config,
+                                   [dev, dev])
+    np.savez(os.environ["APDS_OUT"] + f"{dist.get_rank()}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_two_process_outputs(torch, dev, db, frame_t, config, slots):
+    """The results part (e) compares: the sharded kNN-2 (dp 1 × tp 4) of
+    the frame's queries against the big DB and the serve step (dp 2 ×
+    tp 2) on the first four pool frames, on a mesh over `slots` (this
+    process's, in a distributed run)."""
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.ops import match as M
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.parallel.serve import (
+        make_batch_localizer, shard_device_db)
+    from cubesat_apds_tpu_torch.parallel.sharded_match import (
+        make_sharded_knn2_fused)
+
+    q = detect_and_compute(frame_t.to(dev), config.akaze).descriptors
+    fn = make_sharded_knn2_fused(make_mesh(dp=1, tp=4, devices=slots),
+                                 db_block=65536)
+    d0, d1, i0 = fn(M.unpack_bits(q), fn.place(db.descriptors, db.valid))
+    mesh = make_mesh(dp=2, tp=2, devices=slots)
+    step = make_batch_localizer(mesh, CameraModel.ideal(
+        500.0, 500.0, 256.0, 256.0, device=dev), config, solve_pose=True)
+    base = frame_t.numpy()
+    frames = torch.stack([torch.from_numpy(np.roll(base, (-k, -2 * k),
+                                                   axis=(0, 1)))
+                          for k in range(4)]).to(dev)
+    homog, pose, n_match, n_kp = step(
+        frames, shard_device_db(mesh, db, match_config=config.match))
+    packed = torch.stack([_packed(torch, homog, pose, n_match, n_kp, b)
+                          for b in range(4)])
+    return {"d0": d0.cpu().numpy(), "d1": d1.cpu().numpy(),
+            "i0": i0.cpu().numpy(), "packed": packed.cpu().numpy()}
+
+
+def mesh_two_processes(torch, dev, db, frame_t, config):
+    """(e): two child processes share the card over gloo, two slots each,
+    one global mesh of four; each must get the single-process results. A
+    child that fails or outlasts its time limit fails the phase; both are
+    stopped either way."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank")
+        procs = []
+        t0 = time.perf_counter()
+        try:
+            for rank in range(2):
+                env = dict(os.environ, APDS_COORDINATOR=f"127.0.0.1:{port}",
+                           APDS_NUM_PROCESSES="2", APDS_PROCESS_ID=str(rank),
+                           APDS_OUT=out, PYTHONPATH=root)
+                env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; "
+                     f"sys.exit(chip_smoke.mesh_child('{dev}'))"], cwd=root,
+                    env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+            logs = [p.communicate(timeout=MESH_CHILD_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        secs = time.perf_counter() - t0
+        for rank, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                log(f"mesh child {rank} output:\n{text[-4000:]}")
+            check(p.returncode == 0, f"mesh child {rank} exited 0 "
+                  f"(got {p.returncode})")
+        got = [dict(np.load(f"{out}{rank}.npz")) for rank in range(2)]
+    ref = mesh_two_process_outputs(torch, dev, db, frame_t, config,
+                                   [dev] * 4)
+    for rank, g in enumerate(got):
+        same = {k: np.array_equal(g[k], v) for k, v in ref.items()}
+        check(all(same.values()), f"process {rank} of 2 (gloo, 2 slots "
+              f"each): sharded kNN-2 and serve step equal the single "
+              f"process's ({same})")
+    log(f"two processes sharing the card: {secs:.1f} s with start-up")
+    return {"seconds": secs}
+
+
+def mesh_phase(torch, dev, loc, ctx, image):
+    """Slice 7 on one card, parts (a)–(e) (module docstring, step 13)."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+
+    config = serving_config()
+    t0 = time.perf_counter()
+    frame_t = torch.from_numpy(make_frame(np.random.default_rng(SEED)))
+    q_desc = detect_and_compute(frame_t.to(dev), config.akaze).descriptors
+    knn, _ = mesh_knn(torch, dev, loc.db, q_desc)
+    serve = mesh_serve(torch, dev, loc, ctx["pool"], config)
+    stream = mesh_stream(torch, dev, ctx, config)
+    build = mesh_preprocess(torch, dev, image)
+    procs = mesh_two_processes(torch, dev, loc.db, frame_t, config)
+    secs = time.perf_counter() - t0
+    log(f"mesh phase: {secs:.1f} s")
+    return {"knn": knn, "serve": serve, "stream": stream, "build": build,
+            "two_processes": procs, "seconds": secs}
+
+
+# ---- slice 8: the approximate descriptor modes ------------------------------
+
+MODE_CONFIGS = {   # label: AkazeConfig keywords
+    "exact": {},
+    "fast": dict(descriptor_mode="fast", orientation_mode="fast"),
+    "hybrid2": dict(descriptor_mode="hybrid", hybrid_subcells=2),
+    "hybrid3": dict(descriptor_mode="hybrid", hybrid_subcells=3),
+}
+
+
+def slice_db(torch, dev, frame, config, rng):
+    """bench.py's 10,240-row DB: the port's features of `frame` rolled by
+    (7, 13) under `config`, tiled and perturbed past the first copy."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.pipelines.localize import DeviceDb
+
+    feats = detect_and_compute(
+        torch.from_numpy(np.roll(frame, (7, 13), axis=(0, 1))).to(dev),
+        config.akaze)
+    desc = feats.descriptors.cpu().numpy()
+    xy = feats.keypoints.xy.cpu().numpy()
+    valid = feats.keypoints.valid.cpu().numpy()
+    m = 10240
+    reps = m // len(desc) + 1
+    desc_db = np.tile(desc, (reps, 1))[:m]
+    xy_db = np.tile(xy, (reps, 1))[:m]
+    valid_db = np.tile(valid, reps)[:m]
+    flip = rng.integers(0, 256, desc_db.shape, dtype=np.uint8)
+    flip[:len(desc)] = 0
+    desc_db = desc_db ^ (flip & rng.integers(0, 2, desc_db.shape,
+                                             dtype=np.uint8) * 255)
+    obj = np.concatenate([xy_db, np.zeros((m, 1), np.float32)], axis=1)
+    return DeviceDb(descriptors=torch.from_numpy(desc_db),
+                    xy=torch.from_numpy(xy_db.astype(np.float32)),
+                    valid=torch.from_numpy(valid_db),
+                    obj_points=torch.from_numpy(obj.astype(np.float32)),
+                    has_world=True)
+
+
+def kernel_b_against_twin(torch, run, label):
+    """Every kernel-B launch of `run()` held against the plain twin on the
+    same inputs, bit for bit: the approximate modes' shapes (S = 57 for
+    fast orientation, one launch per MLDB grid at S = 4, 9, 16 fast and
+    16, 36, 64 or 36, 81, 144 hybrid)."""
+    from cubesat_apds_tpu_torch.ops.kernels import sample_kernel as sk
+
+    calls = []
+    orig = sk.sample_patches_cuda
+
+    def recorded(*args):
+        sk.sample_patches_cuda = orig       # its launch counter lives there
+        try:
+            out = orig(*args)
+        finally:
+            sk.sample_patches_cuda = recorded
+        calls.append((args, out))
+        return out
+
+    sk.sample_patches_cuda = recorded
+    try:
+        run()
+    finally:
+        sk.sample_patches_cuda = orig
+    shapes, err = [], 0.0
+    for (packed, level_hw, lvl, iy, ix), out in calls:
+        ref = sk.sample_patches_plain(packed, level_hw, lvl, iy, ix)
+        check(torch.equal(out, ref), f"{label}: kernel B at S={iy.shape[1]} "
+              f"(K={iy.shape[0]}) bit-exact with its twin")
+        shapes.append(int(iy.shape[1]))
+        err = max(err, float((out - ref).abs().max()))
+    return {"shapes_S": shapes, "max_abs_err": err}
+
+
+def modes_features(torch, dev):
+    """(a): bench.py's 512² frame through detect_and_compute in each mode
+    on the card and on the CPU: keypoints, angles and descriptors bit for
+    bit; kernel B's launches a frame; the per-keypoint stages' device
+    time against exact mode."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        _front_end, detect_and_compute, orient_describe)
+
+    frame = torch.from_numpy(make_frame(np.random.default_rng(SEED)))
+    base = serving_config().akaze
+    out = {}
+    for label, kw in MODE_CONFIGS.items():
+        akaze = dataclasses.replace(base, **kw)
+        detect_and_compute(frame.to(dev), akaze)                # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        f = detect_and_compute(frame.to(dev), akaze)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        x = frame.to(dev)[None]
+        kps, packed, level_hw, grids = _front_end(x, akaze, akaze.capacity,
+                                                  None)
+        stage_ms = device_busy_ms(torch, lambda: orient_describe(
+            kps, packed, level_hw, akaze.capacity, akaze, grids))
+        entry = {"launches": launches, "describe_device_ms": stage_ms}
+        if label != "exact":
+            entry["kernel_b"] = kernel_b_against_twin(
+                torch, lambda: orient_describe(kps, packed, level_hw,
+                                               akaze.capacity, akaze, grids),
+                label)
+            t0 = time.perf_counter()
+            fc = detect_and_compute(frame, akaze)
+            cpu_s = time.perf_counter() - t0
+            same = {k: torch.equal(getattr(f.keypoints, k).cpu(),
+                                   getattr(fc.keypoints, k))
+                    for k in ("xy", "size", "angle", "response", "octave",
+                              "class_id", "valid")}
+            same["descriptors"] = torch.equal(f.descriptors.cpu(),
+                                              fc.descriptors)
+            check(all(same.values()), f"{label}: card and CPU give the same "
+                  f"keypoints, angles and descriptors bit for bit "
+                  f"({int(f.keypoints.valid.sum())} keypoints; CPU "
+                  f"{cpu_s:.1f} s)")
+            check(launches == {"fed_cycle": 15, "sample_patches": 4,
+                               "knn2_hamming": 0},
+                  f"{label}: kernel A 15 and kernel B 4 launches a frame "
+                  "(orientation, then one per MLDB grid)")
+        log(f"{label}: launches {launches}; orientation + descriptors "
+            f"{stage_ms:.4f} ms device at capacity {akaze.capacity}")
+        out[label] = entry
+    return out
+
+
+def modes_slice(torch, dev):
+    """(b): the 10k slice step in each mode against a DB of the port's own
+    features in that mode: median of 10 steps, the (13, 7) shift, and the
+    homography-inlier Jaccard against exact mode (the JAX package's
+    120-scene study: 0.81 fast, 0.90 hybrid; reference figures, no
+    gate)."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.pipelines.localize import Localizer
+
+    frame = make_frame(np.random.default_rng(SEED))
+    frame_t = torch.from_numpy(frame)
+    camera = CameraModel.ideal(500.0, 500.0, 256.0, 256.0)
+    out, ref = {}, None
+    for label, kw in MODE_CONFIGS.items():
+        config = serving_config()
+        config = dataclasses.replace(config, akaze=dataclasses.replace(
+            config.akaze, **kw))
+        db = slice_db(torch, dev, frame, config, np.random.default_rng(SEED))
+        loc = Localizer(db, camera, config, device=dev)
+        res = loc.localize(frame_t)
+        torch.cuda.synchronize()
+        H = res.homography.H.cpu().numpy()
+        check(bool(res.homography.ok) and abs(H[0, 2] - 13.0) < 1.0
+              and abs(H[1, 2] - 7.0) < 1.0,
+              f"{label} slice: H recovers the (13, 7) shift (got "
+              f"{H[0, 2]:.3f}, {H[1, 2]:.3f})")
+        pairs = inlier_pairs(res)
+        if ref is None:
+            ref = pairs
+        jac = inlier_jaccard(pairs, ref)
+        med = timed_steps(torch, lambda: loc.localize(frame_t),
+                          f"{label} slice")
+        log(f"{label} slice: {int(res.num_matches)} matches, "
+            f"{int(res.homography.num_inliers)} inliers, inlier Jaccard "
+            f"against exact {jac:.4f}")
+        out[label] = {"step_ms": med * 1e3, "jaccard_vs_exact": jac,
+                      "matches": int(res.num_matches)}
+    return out
+
+
+def modes_accuracy(torch, dev):
+    """(c) and (d): accuracy.run for rects nominal and oblique20, 4 scenes
+    each, in fast and hybrid with tests/test_accuracy.py's bounds; then a
+    store built in fast mode served, check_descriptor_mode accepting fast
+    and refusing exact."""
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        Localizer, check_descriptor_mode)
+    from cubesat_apds_tpu_torch.utils import accuracy as A
+    from cubesat_apds_tpu_torch.utils import synthetic as S
+
+    conds = ("nominal", "oblique20")
+    all_conditions = A.CONDITIONS
+    A.CONDITIONS = {c: all_conditions[c] for c in conds}
+    _reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = A.run(ACC_SCENES, modes=("fast", "hybrid"), texture="rects",
+                    device=dev, progress=log)
+    finally:
+        A.CONDITIONS = all_conditions
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_launches()
+    frames = 2 * len(conds) * ACC_SCENES
+    for mode, cells in res.items():
+        for cond, agg in cells.items():
+            gate = ACC_NOMINAL if cond == "nominal" else ACC_HARD
+            ok = (agg["ok_rate"] >= ACC_OK_RATE
+                  and agg["att_med"] < gate["att"]
+                  and agg["pos_med"] < gate["pos"]
+                  and ("fp" not in gate or agg["fp_med"] < gate["fp"]))
+            check(ok, f"{mode} {cond}: ok {agg['ok_rate']}, attitude "
+                  f"{agg['att_med']} deg, position {agg['pos_med']} m, "
+                  f"footprint {agg['fp_med']} m within the bounds {gate}")
+    check(launches == {"fed_cycle": 15 * (frames + 2),
+                       "sample_patches": 4 * (frames + 2),
+                       "knn2_hamming": 0},
+          f"modes accuracy: kernel A 15 and B 4 launches in each of the "
+          f"{frames} frames and 2 builds ({launches})")
+    log(f"modes accuracy: {frames} frames and 2 builds in {secs:.2f} s")
+
+    mosaic, plane, ds = A.build_world(2026, device=dev)
+    store = A.build_db(ds, A.mode_config("fast"), progress=log,
+                       label="[fast store]")
+    check(store.descriptor_mode == "fast", "the fast build's store records "
+          "descriptor_mode 'fast'")
+    check_descriptor_mode(store, A.mode_config("fast"))
+    try:
+        check_descriptor_mode(store, A.mode_config("exact"))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "check_descriptor_mode refuses exact against the fast "
+          "store")
+    cam = A.scene_camera(mosaic, plane, A._cond_rng(2026, "nominal"), {})
+    frame, _ = S.render_frame(mosaic.bands[0] / 255.0, mosaic.geotransform,
+                              plane, cam, device=dev)
+    r = Localizer(store, A.camera_model(cam, dev), A.mode_config("fast"),
+                  device=dev).localize(frame, solve_pose=True)
+    att, pos = S.pose_errors(r.pose.rvec.cpu().numpy(),
+                             r.pose.tvec.cpu().numpy(), cam)
+    check(bool(r.pose.ok) and att < ACC_NOMINAL["att"]
+          and pos < ACC_NOMINAL["pos"], f"the fast store serves a nominal "
+          f"frame: attitude {att:.4f} deg, position {pos:.2f} m")
+    return {"cells": res, "seconds": secs, "launches": launches}
+
+
+def modes_phase(torch, dev):
+    """Slice 8, parts (a)–(d) (module docstring, step 14)."""
+    t0 = time.perf_counter()
+    feats = modes_features(torch, dev)
+    slice_ = modes_slice(torch, dev)
+    acc = modes_accuracy(torch, dev)
+    secs = time.perf_counter() - t0
+    log(f"modes phase: {secs:.1f} s")
+    return {"features": feats, "slice": slice_, "accuracy": acc,
+            "seconds": secs}
+
+
 def profile_step(torch, step, out_dir, name, frames_per_step=1):
     """torch.profiler over one warmed step: a table by kernel and a Chrome
     trace in out_dir, and the step's device-busy time and kernel count."""
@@ -2296,8 +2964,10 @@ def main(argv=None):
             torch, dev, args.profile)
         _, pruned_s = pruned_phase(torch, dev, loc, big_res, big_frame,
                                    args.profile)
-        del loc, big_res
-        streams = stream_phase(torch, dev, args.profile)
+        del big_res
+        streams, stream_ctx = stream_phase(torch, dev, args.profile)
+        mesh = mesh_phase(torch, dev, loc, stream_ctx, image)
+        del loc, stream_ctx
         with tempfile.TemporaryDirectory() as root:
             store, ds, db_build, tiles_dir, crop = build_phase(torch, dev, root,
                                                             image)
@@ -2314,6 +2984,7 @@ def main(argv=None):
         del loc10k, image, terrain
         accuracy = accuracy_phase(torch, dev)
         calibration = calibration_phase(torch, dev, card)
+        modes = modes_phase(torch, dev)
         launches = dict(launches, knn2_hamming=big_launches["knn2_hamming"])
         for k in kernels:
             name = k["name"]
@@ -2328,6 +2999,21 @@ def main(argv=None):
                 accuracy["launches_per_frame"][name]
             k["accuracy_launches_per_build"] = \
                 accuracy["launches_per_build"][name]
+            k["mesh_serve_launches_per_batch"] = \
+                mesh["serve"]["launches_per_batch"][name]
+            k["mesh_stream_launches_per_batch"] = \
+                mesh["stream"]["launches_per_batch"][name]
+            k["mesh_build_launches"] = mesh["build"]["launches"][name]
+            k["modes_launches_per_frame"] = {
+                label: r["launches"][name]
+                for label, r in modes["features"].items()}
+        kernels[2]["mesh_knn_launches_per_call"] = {
+            label: r["launches"] for label, r in mesh["knn"].items()}
+        kernels[2]["mesh_knn_ms"] = {label: r["ms"]
+                                     for label, r in mesh["knn"].items()}
+        kernels[1]["modes_describe_device_ms"] = {
+            label: r["describe_device_ms"]
+            for label, r in modes["features"].items()}
         kernels[0]["batch8_device_ms_per_frame"] = a_batch_ms
         kernels[1]["batch8_device_ms_per_frame"] = b_batch_ms
         kernels[0]["build_tile_b8_device_ms"] = build_kernels["256_b8_device_ms"]
@@ -2353,6 +3039,17 @@ def main(argv=None):
             f"{calibration['calibrate_warm_s']:.3f} s warm, RMS "
             f"{calibration['rms']:.4f} px, undistort 8 × 512² "
             f"{calibration['undistort_8x512_ms']:.4f} ms")
+        log(f"card: {card} — mesh phase {mesh['seconds']:.1f} s: serve "
+            f"dp2 x tp2 {mesh['serve']['frames_per_s']:.2f} frames/s, mesh "
+            f"stream {mesh['stream']['frames_per_s']:.2f} frames/s (p50 "
+            f"{mesh['stream']['p50_s']:.2f} s, p95 "
+            f"{mesh['stream']['p95_s']:.2f} s), sharded kNN-2 ms "
+            + ", ".join(f"{k} {v['ms']:.3f} (merge {v['merge_ms']:.3f})"
+                        for k, v in mesh["knn"].items()))
+        log(f"card: {card} — modes phase {modes['seconds']:.1f} s: slice "
+            "step ms " + ", ".join(
+                f"{k} {v['step_ms']:.2f} (Jaccard {v['jaccard_vs_exact']:.3f})"
+                for k, v in modes["slice"].items()))
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ find:
   core/          tensor dataclasses, configs, camera model
   ops/           resampling, AKAZE features, matching, geometry
   ops/kernels/   the CUDA kernel wrappers, each beside its plain twin
-  pipelines/     localize (frame → pose)
+  pipelines/     localize (frame → pose), stream, preprocess, calibrate
+  parallel/      a [dp, tp] mesh of device slots: sharded kNN-2, serving
   convert.py     state exchange with the JAX package through numpy
 
 Every function takes its device from its input tensors: CPU tensors run

@@ -1,12 +1,14 @@
-"""AKAZE detect-and-compute over a batch of images, exact mode (port of
+"""AKAZE detect-and-compute over a batch of images (port of
 ops/features/akaze.py:detect_and_compute and detect_and_compute_batch).
 
 Scale space (kernel A per FED cycle on CUDA, one launch per level for
 the batch) → det-Hessian detection → bf16 channel-packed level stacks →
 orientation and MLDB descriptors, both sampled through kernel B on CUDA
-(one launch each for the batch). The per-keypoint stages run on every
-slot of the capacity, invalid slots masked to zeros, so a call reads
-nothing back to the host. One image is a batch of one.
+(one launch each for the batch). The approximate descriptor modes
+("fast", "hybrid") also build three blur-matched stacks, one per MLDB
+grid, and sample each through its own kernel-B launch. The per-keypoint
+stages run on every slot of the capacity, invalid slots masked to zeros,
+so a call reads nothing back to the host. One image is a batch of one.
 
 `detect_and_compute_tiled` covers images past one scale space with
 overlapping tiles, a global contrast factor and a seam dedup.
@@ -23,11 +25,13 @@ from cubesat_apds_tpu_torch.core.config import AkazeConfig
 from cubesat_apds_tpu_torch.core.types import (
     Features, Keypoints, device_const, select)
 from cubesat_apds_tpu_torch.ops.features.detect import detect_keypoints
-from cubesat_apds_tpu_torch.ops.features.mldb import mldb_descriptors
+from cubesat_apds_tpu_torch.ops.features.mldb import (
+    approx_blur_sigmas_fn, approx_mldb_fn, mldb_descriptors)
 from cubesat_apds_tpu_torch.ops.features.orientation import (
     compute_orientations)
 from cubesat_apds_tpu_torch.ops.features.scale_space import build_scale_space
 from cubesat_apds_tpu_torch.ops.kernels.sample_kernel import patch_sampler
+from cubesat_apds_tpu_torch.ops.resample import gaussian_blur
 
 
 def _pad_stack(levels: List[torch.Tensor]) -> torch.Tensor:
@@ -48,12 +52,26 @@ def _packed_stack(lt, lx, ly) -> torch.Tensor:
     return torch.stack(stacks + [torch.zeros_like(stacks[0])], dim=-1)
 
 
-def _check_exact(config: AkazeConfig):
-    if config.descriptor_mode != "exact" or config.orientation_mode != "exact":
-        raise NotImplementedError(
-            "cubesat_apds_tpu_torch ports descriptor_mode='exact' and "
-            "orientation_mode='exact' only, got "
-            f"{config.descriptor_mode!r}/{config.orientation_mode!r}")
+def _grid_stacks(ss, lx, ly, config: AkazeConfig):
+    """The approximate modes' blur-matched stacks: for each MLDB grid g a
+    [B, L, H, W, 4] packed stack of every level's (Lt, Lx, Ly) blurred
+    together with that level's matched σ (approx_blur_sigmas_fn). The JAX
+    package concatenates the three along the level axis ([3L, H, W, 4]);
+    here each grid keeps its own tensor, so each is one contiguous
+    kernel-B stack. None in exact mode."""
+    if config.descriptor_mode == "exact":
+        return None
+    sigmas_fn = approx_blur_sigmas_fn(config)
+    base3 = [torch.stack([ss.Lt[i], lx[i], ly[i]], dim=1)
+             for i in range(len(ss.Lt))]                     # [B, 3, h, w]
+    grids = []
+    for g in range(3):
+        blurred = [gaussian_blur(base3[i], sigmas_fn(m.sigma_size)[g])
+                   for i, m in enumerate(ss.meta)]
+        grids.append(_packed_stack([b[:, 0] for b in blurred],
+                                   [b[:, 1] for b in blurred],
+                                   [b[:, 2] for b in blurred]))
+    return tuple(grids)
 
 
 def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
@@ -71,15 +89,18 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
     top-K is exact whatever `config.detect_topk` says, and
     `config.sampler` is ignored: on CUDA both per-keypoint stages sample
     through kernel B, on CPU through the plain gather.
+    `config.descriptor_mode` and `config.orientation_mode` select the
+    JAX package's exact, fast and hybrid sampling.
     """
-    _check_exact(config)
     capacity = capacity or config.capacity
     imgs = torch.as_tensor(imgs, dtype=torch.float32)
     if imgs.dim() != 3:
         raise ValueError(f"detect_and_compute_batch: [B, H, W] images, got "
                          f"{tuple(imgs.shape)}")
-    kps, packed, level_hw = _front_end(imgs, config, capacity, kcontrast)
-    angle, desc = orient_describe(kps, packed, level_hw, capacity)
+    kps, packed, level_hw, grids = _front_end(imgs, config, capacity,
+                                              kcontrast)
+    angle, desc = orient_describe(kps, packed, level_hw, capacity, config,
+                                  grids)
     kps = Keypoints(xy=kps.xy, size=kps.size, angle=angle,
                     response=kps.response, octave=kps.octave,
                     class_id=kps.class_id, valid=kps.valid)
@@ -88,23 +109,27 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
 
 def _front_end(imgs, config: AkazeConfig, capacity: int, kcontrast):
     """Scale space, detection and the packed level stacks of a batch:
-    (keypoints without angles, packed [B, L, H, W, 4], level_hw [L, 2])."""
+    (keypoints without angles, packed [B, L, H, W, 4], level_hw [L, 2],
+    the approximate modes' grid stacks or None)."""
     ss = build_scale_space(imgs, config, kcontrast)
     kps, lx_list, ly_list = detect_keypoints(ss, config, capacity)
     packed = _packed_stack(ss.Lt, lx_list, ly_list)
     level_hw = device_const([list(a.shape[-2:]) for a in ss.Lt],
                             torch.int32, imgs.device)
-    return kps, packed, level_hw
+    return kps, packed, level_hw, _grid_stacks(ss, lx_list, ly_list, config)
 
 
-def orient_describe(kps: Keypoints, packed, level_hw, n: int):
+def orient_describe(kps: Keypoints, packed, level_hw, n: int,
+                    config: AkazeConfig = AkazeConfig(), grids=None):
     """Orientation and MLDB descriptors of the first `n` slots of every
     image of the batch → (angle [B, capacity], desc [B, capacity, 61]),
     zero past slot n. Invalid slots come out as zeros from both stages'
     masks, and the valid keypoints are a response-sorted prefix, so any
     n at or above the batch's largest live count gives the same bits;
     `detect_and_compute_batch` runs all `capacity` slots, which needs no
-    host read of the count."""
+    host read of the count. In the approximate descriptor modes `grids`
+    holds `_grid_stacks`' three stacks, each sampled on its own (one
+    kernel-B launch a grid on the card)."""
     bsz, capacity = kps.valid.shape
     dev = kps.xy.device
     angle = torch.zeros((bsz, capacity), dtype=torch.float32, device=dev)
@@ -119,9 +144,14 @@ def orient_describe(kps: Keypoints, packed, level_hw, n: int):
     # Both stages sample through sample_fn, so they get one image's
     # stack only for its shape.
     a = compute_orientations(packed[0], level_hw, xy, size, class_id,
+                             octave, valid, sample_fn=sample_fn,
+                             mode=config.orientation_mode)
+    if config.descriptor_mode == "exact":
+        d = mldb_descriptors(packed[0], level_hw, xy, size, a, class_id,
                              octave, valid, sample_fn=sample_fn)
-    d = mldb_descriptors(packed[0], level_hw, xy, size, a, class_id,
-                         octave, valid, sample_fn=sample_fn)
+    else:
+        d = approx_mldb_fn(config)(grids, level_hw, xy, size, a, class_id,
+                                   octave, valid)
     angle[:, :n] = a.reshape(bsz, n)
     desc[:, :n] = d.reshape(bsz, n, 61)
     return angle, desc

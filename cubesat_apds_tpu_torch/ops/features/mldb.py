@@ -1,20 +1,31 @@
 """Full MLDB binary descriptor (486 bits / 61 bytes), batched (port of
-ops/features/mldb.py, exact mode).
+ops/features/mldb.py).
 
 A (2·pattern)² patch around the keypoint, rotated by its angle and
 sampled at step = keypoint scale (441 nearest-neighbour samples); 2×2,
 3×3 and 4×4 grids of cell means of (intensity, rotated ∂x, rotated ∂y);
 every cell pair compared per channel → 486 bits, LSB-first packed.
 
+The approximate modes read each grid's cells from a blur-matched stack
+instead: "fast" one sample per cell (29 a keypoint), "hybrid" sub×sub
+weighted subcell samples per cell placed in the rotated frame (116 at
+sub = 2, 261 at sub = 3). Each grid's samples come from its own stack of
+L levels through one sampler call (kernel B on the card); the bit layout
+is exact mode's.
+
 The rotation's cos and sin are float64 rounded to float32 and the cell
-means `tree_sum`s, so a descriptor is the same bits on every device.
+means `tree_sum`s (the hybrid subcell sums a fixed sequential order), so
+a descriptor is the same bits on every device.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from cubesat_apds_tpu_torch.core.config import DESC_BYTES
 from cubesat_apds_tpu_torch.core.types import device_const
 from cubesat_apds_tpu_torch.ops.match import pack_bits
 
@@ -139,3 +150,170 @@ def _cell_means(samples, g: int, pattern: int = _PATTERN):
                                                       step * step)
     return tree_sum(blocks)
 
+
+
+def descriptor_bytes() -> int:
+    return DESC_BYTES
+
+
+# ---- approximate modes: blur-matched samples per cell ---------------------
+
+def _cell_centers(pattern: int = _PATTERN):
+    """Static per-grid (step, cell centres [n², 2]) in pattern coordinates."""
+    size_mult = [1.0, 2.0 / 3.0, 1.0 / 2.0]
+    out = []
+    for g in range(3):
+        step = int(np.ceil(pattern * size_mult[g]))
+        starts = list(range(-pattern, pattern, step))
+        centers = np.array([(i + (step - 1) / 2.0, j + (step - 1) / 2.0)
+                            for i in starts for j in starts], np.float32)
+        out.append((step, centers))
+    return out
+
+
+_CELL_CENTERS = _cell_centers()
+# Cells per grid (2×2, 3×3, 4×4): a hybrid cell folds m² subcell samples.
+_N_CELLS = [len(c) for _, c in _CELL_CENTERS]
+
+
+def fast_blur_sigmas(scale: int):
+    """Per-grid Gaussian σ (level pixels) matching a box mean over a
+    (step·scale)² cell: σ = step·scale/√12."""
+    return [step * scale / np.sqrt(12.0) for step, _ in _CELL_CENTERS]
+
+
+def _subcell_geometry(sub: int, pattern: int = _PATTERN):
+    """Static per-grid sub×sub subcell centres and weights.
+
+    A cell's integer samples {i..i+step−1} split into `sub` parts per
+    axis (bounds round(step·k/sub)); a subcell's centre is the mean
+    position of its part's samples and its weight the count fraction.
+    Returns per grid (step, centres [n²·m², 2], weights [n²·m²], m), m the
+    number of non-empty parts (≤ sub)."""
+    size_mult = [1.0, 2.0 / 3.0, 1.0 / 2.0]
+    out = []
+    for g in range(3):
+        step = int(np.ceil(pattern * size_mult[g]))
+        starts = list(range(-pattern, pattern, step))
+        bounds = [round(step * k / sub) for k in range(sub + 1)]
+        parts = []
+        for k in range(sub):
+            lo, hi = bounds[k], bounds[k + 1]
+            if hi > lo:
+                parts.append(((lo + hi - 1) / 2.0, (hi - lo) / step))
+        centers, weights = [], []
+        for i in starts:
+            for j in starts:
+                for ca, wa in parts:
+                    for cb, wb in parts:
+                        centers.append((i + ca, j + cb))
+                        weights.append(wa * wb)
+        out.append((step, np.asarray(centers, np.float32),
+                    np.asarray(weights, np.float32), len(parts)))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _subcell(sub: int):
+    return _subcell_geometry(sub)
+
+
+def hybrid_blur_sigmas(scale: int, sub: int = 2):
+    """Per-grid σ (level pixels) matching a box mean over a 1/sub cell
+    part: σ = step·scale/(sub·√12)."""
+    return [step * scale / (sub * np.sqrt(12.0))
+            for step, _, _, _ in _subcell(sub)]
+
+
+def approx_mldb_fn(config):
+    """The approximate-mode descriptor function of a config, the one
+    dispatch point for fast/hybrid: f(grid_stacks, level_hw, xy, size,
+    angle, class_id, octave, valid)."""
+    if config.descriptor_mode == "fast":
+        return mldb_descriptors_fast
+    return functools.partial(mldb_descriptors_hybrid,
+                             sub=config.hybrid_subcells)
+
+
+def approx_blur_sigmas_fn(config):
+    """The blur-σ function paired with approx_mldb_fn."""
+    if config.descriptor_mode == "fast":
+        return fast_blur_sigmas
+    return functools.partial(hybrid_blur_sigmas, sub=config.hybrid_subcells)
+
+
+def _approx_descriptors(centers_per_grid, weights_per_grid, grid_stacks,
+                        level_hw, xy, size, angle, class_id, octave, valid):
+    """Shared body of the fast and hybrid modes: grid g samples its stack
+    at the rotated `centers_per_grid[g]` (pattern units × the keypoint's
+    scale), one sampler (a kernel-B launch on the card) a grid;
+    `weights_per_grid[g]` (None in fast mode) folds each cell's m²
+    subcell samples into its weighted sum."""
+    from cubesat_apds_tpu_torch.ops.kernels.sample_kernel import (
+        patch_sampler)
+
+    K = xy.shape[0]
+    dev = xy.device
+    lvl = class_id.clamp(0, grid_stacks[0].shape[-4] - 1)
+    if grid_stacks[0].dim() == 5:                 # a batch: lvl [B, n]
+        lvl = lvl.reshape(grid_stacks[0].shape[0], -1)
+    sample_fns = [patch_sampler(g, level_hw, lvl) for g in grid_stacks]
+    ratio = torch.exp2(octave.to(torch.float32))
+    s = _fround(0.5 * size / ratio).to(torch.float32)[:, None]
+    xf = (xy[:, 0] / ratio)[:, None]
+    yf = (xy[:, 1] / ratio)[:, None]
+    co, si = _cos_sin(angle)
+
+    bit_groups = []
+    for g in range(3):
+        centers = device_const(centers_per_grid[g], torch.float32, dev)
+        k_off = centers[:, 0][None, :]
+        l_off = centers[:, 1][None, :]
+        sx = xf + s * (k_off * co - l_off * si)
+        sy = yf + s * (k_off * si + l_off * co)
+        vals = sample_fns[g](_fround(sy), _fround(sx))       # [K, S_g, 4]
+        rx = vals[..., 1]
+        ry = vals[..., 2]
+        dx = rx * co + ry * si
+        dy = -rx * si + ry * co
+        cells = torch.stack([vals[..., 0], dx, dy], dim=-1)  # [K, S_g, 3]
+        if weights_per_grid is not None:
+            w = device_const(weights_per_grid[g], torch.float32, dev)
+            ms = centers.shape[0] // _N_CELLS[g]
+            block = (cells * w[None, :, None]).reshape(K, -1, ms, 3)
+            cells = block[:, :, 0]
+            for t in range(1, ms):                           # fixed order
+                cells = cells + block[:, :, t]
+        pairs = device_const(_PAIR_IDX[g], torch.long, dev)
+        bits = cells[:, pairs[:, 0], :] > cells[:, pairs[:, 1], :]
+        bit_groups.append(bits.transpose(-1, -2).reshape(K, -1))
+    desc = pack_bits(torch.cat(bit_groups, dim=-1))
+    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
+
+
+def mldb_descriptors_fast(grid_stacks, level_hw, xy, size, angle, class_id,
+                          octave, valid):
+    """Approximate MLDB: each cell mean is one sample of a blur-matched
+    pyramid (29 samples a keypoint instead of exact mode's 441).
+
+    grid_stacks: the three per-grid blur-matched stacks, each
+    [L, H, W, 4] (or [B, L, H, W, 4] for a batch of B·n keypoints), grid
+    g blurred with σ = step_g·s_level/√12 per level. The JAX package
+    takes them concatenated along the level axis ([3L, H, W, 4]); the
+    port keeps each grid its own tensor, one contiguous kernel-B stack."""
+    return _approx_descriptors(
+        [c for _, c in _CELL_CENTERS], None, grid_stacks, level_hw, xy,
+        size, angle, class_id, octave, valid)
+
+
+def mldb_descriptors_hybrid(grid_stacks, level_hw, xy, size, angle,
+                            class_id, octave, valid, sub: int = 2):
+    """Approximate MLDB between fast and exact: each cell mean is a
+    weighted sum of sub×sub blur-matched subcell samples placed in the
+    keypoint's rotated frame (116 samples a keypoint at sub = 2, 261 at
+    sub = 3). grid_stacks as in mldb_descriptors_fast, blurred with
+    hybrid_blur_sigmas(·, sub)."""
+    geo = _subcell(sub)
+    return _approx_descriptors(
+        [c for _, c, _, _ in geo], [w for _, _, w, _ in geo], grid_stacks,
+        level_hw, xy, size, angle, class_id, octave, valid)

@@ -1,9 +1,10 @@
 """AKAZE dominant-orientation assignment, batched over keypoints (port of
-ops/features/orientation.py, exact mode).
+ops/features/orientation.py).
 
 Gaussian-weighted (Lx, Ly) on the static 109-point radius-6 disc (step =
-keypoint scale), then 42 sliding 60° windows; the window with the largest
-resultant vector gives the angle.
+keypoint scale; mode "fast": its 57-point checkerboard half), then 42
+sliding 60° windows; the window with the largest resultant vector gives
+the angle.
 
 Every step gives the same bits on every device and wherever a keypoint
 sits in its batch: angles come from `_atan2`, float64 atan2 rounded to
@@ -28,6 +29,11 @@ _DISC = np.array([(i, j) for i in range(-6, 7) for j in range(-6, 7)
                   if i * i + j * j < 36], np.int32)          # [109, 2]
 _GAUSS_W = np.exp(-(_DISC[:, 0] ** 2 + _DISC[:, 1] ** 2) / (2.0 * 2.5 ** 2)
                   ).astype(np.float32)                        # σ = 2.5
+# Fast mode: the checkerboard half of the disc, i + j even: 57 points (the
+# JAX package's comments say 55; its selection is this one).
+_FAST_SEL = (_DISC[:, 0] + _DISC[:, 1]) % 2 == 0
+_DISC_FAST = _DISC[_FAST_SEL]                                 # [57, 2]
+_GAUSS_W_FAST = _GAUSS_W[_FAST_SEL]
 _N_WINDOWS = 42
 _WINDOW_STARTS = (np.arange(_N_WINDOWS) * 0.15).astype(np.float32)
 
@@ -59,14 +65,15 @@ def tree_sum(x, dim: int = -1):
     return x.squeeze(dim)
 
 
-def orientation_sample_coords(xy, size, class_id, octave):
-    """Integer sample coordinates (iy, ix) [K, 109] of the orientation
-    disc, in level coordinates (pre-clip)."""
+def orientation_sample_coords(xy, size, class_id, octave, mode="exact"):
+    """Integer sample coordinates (iy, ix) [K, S] of the orientation
+    disc (S = 109 exact, 57 fast), in level coordinates (pre-clip)."""
     ratio = torch.exp2(octave.to(torch.float32))
     s = _fround(0.5 * size / ratio).to(torch.float32)
     xf = xy[:, 0] / ratio
     yf = xy[:, 1] / ratio
-    disc = device_const(_DISC, torch.float32, xy.device)
+    disc = device_const(_DISC_FAST if mode == "fast" else _DISC,
+                        torch.float32, xy.device)
     ix = _fround(xf[:, None] + disc[None, :, 0] * s[:, None])
     iy = _fround(yf[:, None] + disc[None, :, 1] * s[:, None])
     return iy, ix
@@ -79,27 +86,29 @@ def gather_sampler(packed_stack, level_hw, lvl):
 
 
 def compute_orientations(packed_stack, level_hw, xy, size, class_id,
-                         octave, valid, sample_fn=None):
+                         octave, valid, sample_fn=None, mode="exact"):
     """Dominant orientation per keypoint, angle [K] in [0, 2π).
 
     packed_stack: [L, H, W, 4] per-level stack (Lt, Lx, Ly, 0);
     level_hw: [L, 2] true (h, w) per level; sample_fn overrides the
     sampling backend (kernel B); defaults to the plain gather.
+    mode="fast" samples the 57-point checkerboard half of the disc.
     """
     lvl = class_id.clamp(0, packed_stack.shape[0] - 1)
-    iy, ix = orientation_sample_coords(xy, size, class_id, octave)
+    iy, ix = orientation_sample_coords(xy, size, class_id, octave, mode)
     if sample_fn is None:
         sample_fn = gather_sampler(packed_stack, level_hw, lvl)
     vals = sample_fn(iy, ix)                                  # [K, S, C]
-    weights = device_const(_GAUSS_W, torch.float32, xy.device)
+    weights = device_const(_GAUSS_W_FAST if mode == "fast" else _GAUSS_W,
+                           torch.float32, xy.device)
     res_x = vals[..., 1] * weights[None, :]
     res_y = vals[..., 2] * weights[None, :]
 
     two_pi = 2.0 * math.pi
     ang = _atan2(res_y, res_x)
-    ang = torch.where(ang < 0, ang + two_pi, ang)              # [K, 109]
+    ang = torch.where(ang < 0, ang + two_pi, ang)              # [K, S]
     starts = device_const(_WINDOW_STARTS, torch.float32, xy.device)
-    rel = ang[:, None, :] - starts[None, :, None]               # [K, 42, 109]
+    rel = ang[:, None, :] - starts[None, :, None]               # [K, 42, S]
     rel = torch.where(rel < 0, rel + two_pi, rel)
     in_win = rel < (math.pi / 3.0)
 

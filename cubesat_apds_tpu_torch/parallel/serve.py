@@ -1,0 +1,198 @@
+"""Mesh-parallel batched serving: the online localization step (detect →
+match → homography → PnP) over a (dp × tp) mesh (port of
+parallel/serve.py).
+
+  * frames split over "dp": each dp row runs `detect_and_compute_batch` on
+    its own frames (kernels A and B once per row on the card);
+  * the descriptor DB shards over "tp": each slot of the row matches all
+    of the row's queries against its shard — kernel 4, one launch per
+    shard, when a shard holds more than `config.match.db_block` rows or
+    `config.match.kernel == "fused"`, else a dense product — and the
+    [tp, Q] partials merge into the global top-2 (the makers of
+    parallel.sharded_match);
+  * the geometry (RANSAC homography and PnP) runs per frame on the row's
+    first slot, exactly as a lone `localize_frame_jit` step runs it, so a
+    frame's outputs are the lone step's bits.
+
+Across processes a row is computed by the processes that hold its slots
+(each extracts the row's features), every process takes part in each
+row's all_reduce(MIN) merge, the row's first slot's process runs the
+geometry, and the outputs are broadcast, so every process returns the
+whole batch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from cubesat_apds_tpu_torch.core.config import MatchConfig, PipelineConfig
+from cubesat_apds_tpu_torch.core.types import (
+    CameraModel, HomographyResult, PoseSolution, select, to_device)
+from cubesat_apds_tpu_torch.ops import match as M
+from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute_batch
+from cubesat_apds_tpu_torch.parallel.mesh import (
+    Mesh, Placed, broadcast_tensors, replicate)
+from cubesat_apds_tpu_torch.parallel.sharded_match import (
+    ShardedKnn2, make_sharded_knn2, make_sharded_knn2_fused)
+from cubesat_apds_tpu_torch.pipelines.localize import (
+    DeviceDb, localize_from_matches)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshDb:
+    """A DeviceDb placed on a mesh: descriptors and valid (rows padded to
+    a tp multiple with valid=False) placed as `knn2`'s per-shard inputs,
+    sharded over tp — kernel 4's layouts, made once here, when the match
+    dispatch sends the serve step through it (`fused`), else unpacked
+    bits — and xy and obj_points replicated (the winner's coordinates
+    after the merge)."""
+
+    mesh: Mesh
+    knn2: ShardedKnn2
+    shards: Placed
+    xy: Placed
+    obj_points: Placed
+    fused: bool
+    has_world: bool = False
+    world_frame: str = "local"
+
+    @property
+    def rows(self) -> int:
+        return self.shards.shape[0]
+
+    @property
+    def shard_rows(self) -> int:
+        return self.rows // self.mesh.shape["tp"]
+
+
+def _use_kernel(match: MatchConfig, shard_rows: int) -> bool:
+    """JAX's dispatch: kernel 4 per shard when a shard outgrows db_block
+    (or when forced); "scan" keeps the dense product."""
+    return match.kernel == "fused" or (match.kernel == "auto"
+                                       and shard_rows > match.db_block)
+
+
+def shard_device_db(mesh: Mesh, db: DeviceDb, pad_to_multiple: bool = True,
+                    match_config: MatchConfig = MatchConfig()) -> MeshDb:
+    """Place a DeviceDb on the mesh (see MeshDb) for the match route that
+    `match_config` gives its shards."""
+    tp = mesh.shape["tp"]
+    m = db.descriptors.shape[0]
+    pad = (-m) % tp if pad_to_multiple else 0
+    desc, valid, xy, obj = db.descriptors, db.valid, db.xy, db.obj_points
+    if pad:
+        desc = torch.cat([desc, desc.new_zeros((pad,) + desc.shape[1:])])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+        xy = torch.cat([xy, xy.new_zeros((pad, 2))])
+        obj = torch.cat([obj, obj.new_zeros((pad, 3))])
+    fused = _use_kernel(match_config, (m + pad) // tp)
+    if fused:
+        knn2 = make_sharded_knn2_fused(mesh, db_block=match_config.db_block)
+        shards = knn2.place(desc, valid)
+    else:
+        knn2 = make_sharded_knn2(mesh)
+        shards = knn2.place(M.unpack_bits(desc), valid)
+    xy_p, obj_p = replicate(mesh, (xy, obj))
+    return MeshDb(mesh=mesh, knn2=knn2, shards=shards, xy=xy_p,
+                  obj_points=obj_p, fused=fused, has_world=db.has_world,
+                  world_frame=db.world_frame)
+
+
+def _flat(homog, pose, n_match, n_kp):
+    t = [homog.H, homog.inliers, homog.num_inliers, homog.ok]
+    if pose is not None:
+        t += [pose.rvec, pose.tvec, pose.inliers, pose.num_inliers, pose.ok]
+    return t + [n_match, n_kp]
+
+
+def _unflat(t, want_pose: bool):
+    homog = HomographyResult(*t[:4])
+    pose = PoseSolution(*t[4:9]) if want_pose else None
+    return homog, pose, t[-2], t[-1]
+
+
+def make_batch_localizer(mesh: Mesh, camera: CameraModel,
+                         config: PipelineConfig = PipelineConfig(),
+                         solve_pose=None):
+    """The mesh-parallel batch step: step(frames, db) → (homography, pose
+    or None, num_matches [B], num_keypoints [B]), every leaf leading with
+    B, on this process's first slot. frames [B, H, W] (B divisible by dp;
+    float32 in [0, 1]); db from shard_device_db(mesh, ...). `pose` is
+    solved where the DB has world points unless `solve_pose` says
+    otherwise."""
+    dp = mesh.shape["dp"]
+    tp = mesh.shape["tp"]
+
+    def step(frames, db: MeshDb):
+        frames = torch.as_tensor(frames, dtype=torch.float32)
+        b = frames.shape[0]
+        if b % dp:
+            raise ValueError(f"batch {b} does not divide over dp={dp}")
+        if db.fused != _use_kernel(config.match, db.shard_rows):
+            raise ValueError("the mesh DB was placed for another match "
+                             "route: place it with this config's match")
+        lb = b // dp
+        want_pose = db.has_world if solve_pose is None else solve_pose
+        rows = []
+        for i in range(dp):
+            local = [j for j in range(tp) if mesh.is_local(i, j)]
+            out = None
+            if local:
+                dev = mesh.devices[i, local[0]]
+                feats = detect_and_compute_batch(
+                    frames[i * lb:(i + 1) * lb].to(dev), config.akaze)
+                cap = feats.keypoints.capacity
+                top2 = db.knn2(M.unpack_bits(feats.descriptors.reshape(
+                    lb * cap, -1)), db.shards, row=i)
+                if mesh.is_local(i, 0):
+                    out = _row_geometry(db, i, feats, top2, lb, cap, camera,
+                                        config, want_pose)
+            elif mesh.multiprocess:      # take part in the row's merge
+                q = lb * config.akaze.capacity
+                db.knn2(torch.zeros((q, M.DESC_BITS_PADDED), dtype=torch.int8,
+                                    device=mesh.home), db.shards, row=i)
+            rows.append(out)
+        if mesh.multiprocess:
+            n_out = 6 + 5 * bool(want_pose)
+            rows = [broadcast_tensors(rows[i], int(mesh.ranks[i, 0]), n_out,
+                                      mesh.home) for i in range(dp)]
+        home = mesh.home
+        cat = [torch.cat([r[k].to(home) for r in rows])
+               for k in range(len(rows[0]))]
+        return _unflat(cat, want_pose)
+
+    return step
+
+
+def _row_geometry(db: MeshDb, i: int, feats, top2, lb: int, cap: int,
+                  camera: CameraModel, config: PipelineConfig,
+                  want_pose: bool):
+    """Row i's per-frame geometry on its first slot → the step's outputs
+    of its lb frames, flattened (see _flat)."""
+    dev = db.mesh.devices[i, 0]
+    d0, d1, i0 = (t.to(dev).reshape(lb, cap) for t in top2)
+    valid = feats.keypoints.valid.to(dev)
+    d0 = torch.where(valid, d0, M.INVALID_DIST)
+    cam = to_device(camera, dev)
+    xy, obj = db.xy.parts[(i, 0)], db.obj_points.parts[(i, 0)]
+    results = []
+    for f in range(lb):
+        matches = M._ratio_matches(d0[f], d1[f], i0[f], config.match.ratio)
+        kp = to_device(select(feats.keypoints, f), dev)
+        results.append(localize_from_matches(kp, matches, xy, obj,
+                                             db.world_frame, cam, config,
+                                             want_pose))
+    homog = HomographyResult(*(torch.stack([getattr(r.homography, k)
+                                            for r in results])
+                               for k in ("H", "inliers", "num_inliers", "ok")))
+    pose = None
+    if want_pose:
+        pose = PoseSolution(*(torch.stack([getattr(r.pose, k)
+                                           for r in results])
+                              for k in ("rvec", "tvec", "inliers",
+                                        "num_inliers", "ok")))
+    n_match = torch.stack([r.num_matches for r in results])
+    n_kp = torch.stack([r.num_keypoints for r in results])
+    return _flat(homog, pose, n_match, n_kp)

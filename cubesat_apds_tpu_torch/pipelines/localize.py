@@ -191,13 +191,23 @@ def localize_from_features(feats: Features, db: DeviceDb,
                         ratio=config.match.ratio, q_valid=kp.valid,
                         db_valid=db.valid, block=config.match.db_block,
                         kernel=config.match.kernel, db_layout=db.match_layout)
-    q_pts, t_pts = matched_points(kp.xy, db.xy, matches)
+    return localize_from_matches(kp, matches, db.xy, db.obj_points,
+                                 db.world_frame, camera, config, solve_pose)
+
+
+def localize_from_matches(kp: Keypoints, matches: Matches, db_xy, db_obj,
+                          world_frame: str, camera: CameraModel,
+                          config: PipelineConfig,
+                          solve_pose: bool) -> LocalizationResult:
+    """The geometry of one frame from its matches: RANSAC homography and,
+    if asked, PnP against the DB's world points."""
+    q_pts, t_pts = matched_points(kp.xy, db_xy, matches)
     homog = find_homography_ransac(q_pts, t_pts, valid=matches.valid,
                                    config=config.ransac)
     pose = None
     if solve_pose:
-        pose = solve_pose_recentered(db.obj_points, q_pts, matches, camera,
-                                     config.pnp, world_frame=db.world_frame)
+        pose = solve_pose_recentered(db_obj, q_pts, matches, camera,
+                                     config.pnp, world_frame=world_frame)
     return LocalizationResult(homography=homog, pose=pose,
                               num_matches=matches.count(),
                               num_keypoints=kp.count(), keypoints=kp,

@@ -137,13 +137,15 @@ def preprocess(
     (a missing cursor just starts fresh); the run parameters must match
     or it refuses. On success the checkpoint is removed.
 
-    `mesh` (sharding the tile batches over several devices) is not
-    ported: it raises.
+    `mesh` (parallel.mesh.make_mesh) splits each tile batch over the
+    mesh's dp rows, row i's tiles extracted on its first slot; the batch
+    width rounds up to a dp multiple. Every process gets the whole
+    batch's features and ingests them into its own store: the store is
+    element-wise the single-device build's.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "preprocess(mesh=...): multi-device DB builds are slice 7 of "
-            "the port (ROADMAP Queue 1), not ported yet")
+        dp = mesh.shape["dp"]
+        tile_batch = max(dp * ((tile_batch + dp - 1) // dp), dp)
     _ckpt = _Checkpointer(checkpoint_dir, checkpoint_every)
     cursor = _ckpt.read_cursor() if resume else None
     if cursor is not None:
@@ -228,12 +230,16 @@ def preprocess(
             grays = [tile_gray(dataset, off_x[c], off_y[r], step_x, step_y,
                                tile_w, tile_h) for r, c in batch_meta]
             # Ragged final batches keep the fixed batch width (as the JAX
-            # package does, whose compiled step has one batch shape).
-            while len(grays) < tile_batch and len(tiles_meta) > tile_batch:
+            # package does, whose compiled step has one batch shape); under
+            # a mesh the batch always fills to its dp multiple.
+            while len(grays) < tile_batch and (len(tiles_meta) > tile_batch
+                                               or mesh is not None):
                 grays.append(torch.zeros_like(grays[0]))
-            feats = detect_and_compute_batch(torch.stack(grays), config.akaze)
-
-            host = _host_arrays(feats)
+            if mesh is None:
+                host = _host_arrays(detect_and_compute_batch(
+                    torch.stack(grays), config.akaze))
+            else:
+                host = _mesh_host_arrays(mesh, grays, config)
             for bi, (r, c) in enumerate(batch_meta):
                 # Tile record in REFERENCE-frame coordinates
                 # (InsertImage, main.rs:280-293).
@@ -260,6 +266,35 @@ def _host_arrays(feats) -> dict:
         ("response", kp.response), ("octave", kp.octave),
         ("class_id", kp.class_id), ("valid", kp.valid),
         ("desc", feats.descriptors))}
+
+
+_FIELDS = ("xy", "size", "angle", "response", "octave", "class_id", "valid",
+           "desc")
+
+
+def _mesh_host_arrays(mesh, grays, config: PipelineConfig) -> dict:
+    """A tile batch split over the mesh's dp rows: row i's tiles extracted
+    on its first slot by the process that owns it, then every row's host
+    arrays on every process (broadcast across processes)."""
+    from cubesat_apds_tpu_torch.parallel.mesh import broadcast_tensors
+
+    dp = mesh.shape["dp"]
+    lb = len(grays) // dp
+    rows = []
+    for i in range(dp):
+        h = None
+        if mesh.is_local(i, 0):
+            chunk = torch.stack(grays[i * lb:(i + 1) * lb])
+            h = _host_arrays(detect_and_compute_batch(
+                chunk.to(mesh.devices[i, 0]), config.akaze))
+        if mesh.multiprocess:
+            sent = None if h is None else [torch.from_numpy(h[k])
+                                           for k in _FIELDS]
+            got = broadcast_tensors(sent, int(mesh.ranks[i, 0]),
+                                    len(_FIELDS), mesh.home)
+            h = {k: t.cpu().numpy() for k, t in zip(_FIELDS, got)}
+        rows.append(h)
+    return {k: np.concatenate([h[k] for h in rows]) for k in _FIELDS}
 
 
 def tile_rows(host: dict, bi: int, lod: int, off_x: int, off_y: int,

@@ -13,6 +13,8 @@ pipelines/stream.py).
   * a PrunedDeviceDb serves each frame through the spatial window; a
     frame whose coarse fix fails or whose window overflows reruns through
     the full-DB fallback, synchronously;
+  * with a mesh, each batch runs the mesh-parallel serve step (frames
+    over dp, the DB over tp; parallel.serve);
   * per-stage wall-clock stats (`StageTimes`) feed the cadence report.
 
 As in the JAX stream, up to `prefetch` frames' steps (`prefetch // batch`
@@ -95,7 +97,14 @@ class StreamingLocalizer:
     whose coarse fix fails or whose window overflows rerun synchronously
     through the full-DB fallback (`fallback_frames` counts them). Up to
     `prefetch` frames' steps stay in flight before a result is fetched.
-    `mesh` (multi-device serving) is not ported: it raises.
+
+    `mesh` (parallel.mesh.make_mesh) serves every batch through the
+    mesh-parallel step (parallel.serve.make_batch_localizer): frames over
+    dp, the DB over tp — a DeviceDb is placed with shard_device_db, or
+    pass a MeshDb placed already. The batch rounds up to a dp multiple,
+    frames upload to this process's first slot, and every process gets
+    the whole batch's results. Pruned serving does not compose with a
+    mesh.
     """
 
     def __init__(self, db, camera: CameraModel,
@@ -103,14 +112,28 @@ class StreamingLocalizer:
                  solve_pose: bool = True, prefetch: int = 2,
                  transfer_uint8: bool = True, batch: int = 1,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingLocalizer(mesh=...): multi-device serving is "
-                "slice 7 of the port (ROADMAP Queue 1), not ported yet")
-        self.device = torch.device("cuda" if device is None else device)
         self._pruned = isinstance(db, PrunedDeviceDb)
-        self.db = (to_device(db, self.device) if self._pruned
-                   else resident_db(db, config, self.device))
+        self.mesh = mesh
+        if mesh is not None:
+            from cubesat_apds_tpu_torch.parallel.serve import (
+                MeshDb, make_batch_localizer, shard_device_db)
+
+            if self._pruned:
+                raise ValueError(
+                    "pruned streaming composes with micro-batching, not "
+                    "with a mesh (the spatial window is a single-device "
+                    "structure; shard the full DB over the mesh instead)")
+            dp = mesh.shape["dp"]
+            batch = dp * max(-(-int(batch) // dp), 1)
+            self.device = mesh.home
+            self.db = db if isinstance(db, MeshDb) else shard_device_db(
+                mesh, db, match_config=config.match)
+            self._serve = make_batch_localizer(mesh, camera, config,
+                                               solve_pose=solve_pose)
+        else:
+            self.device = torch.device("cuda" if device is None else device)
+            self.db = (to_device(db, self.device) if self._pruned
+                       else resident_db(db, config, self.device))
         self.camera = to_device(camera, self.device)
         self.config = config
         self.solve_pose = solve_pose
@@ -130,6 +153,12 @@ class StreamingLocalizer:
         """frames [B, H, W] on the device → [B, 21] packed outputs; pruned,
         [B, 23]: coarse_ok (21) and overflow (22) appended."""
         frames = _as_float(frames)
+        if self.mesh is not None:
+            homog, pose, n_match, n_kp = self._serve(frames, self.db)
+            return torch.stack([_pack_outputs(
+                select(homog, b), n_match[b], n_kp[b],
+                None if pose is None else select(pose, b))
+                for b in range(frames.shape[0])])
         feats = detect_and_compute_batch(frames, self.config.akaze)
         rows = []
         for b in range(frames.shape[0]):

@@ -21,8 +21,8 @@ The seeds, conditions and sizes are the reference runner's (seed 2026, a
 1024² mosaic at 1 m GSD, 512² frames, focal 1500 px, altitude 1500 m,
 capacity 2048, ratio 0.75, 256 homography and 128 PnP hypotheses).
 `mosaic_size`, `frame_size` and `capacity` shrink a run for a quick check;
-the look-at margin scales with the frame. Only the exact descriptor mode
-is ported.
+the look-at margin scales with the frame. `modes` runs any of the
+exact, fast and hybrid descriptor modes, each with its own DB build.
 """
 
 from __future__ import annotations
@@ -74,23 +74,23 @@ def _cond_rng(seed: int, cond: str, extra: int = 0):
         % 2**32)
 
 
+MODES = {
+    "exact": dict(descriptor_mode="exact", orientation_mode="exact"),
+    "fast": dict(descriptor_mode="fast", orientation_mode="fast"),
+    "hybrid": dict(descriptor_mode="hybrid", orientation_mode="exact"),
+}
+
+
 def mode_config(mode: str, capacity: int = 2048):
-    """The runner's PipelineConfig for descriptor mode `mode`. Only
-    "exact" is ported; "fast" and "hybrid" (slice 8 of the port's
-    ROADMAP) raise, as the feature step's _check_exact does."""
+    """The runner's PipelineConfig for descriptor mode `mode` (exact,
+    fast with fast orientation, or hybrid with exact orientation)."""
     from cubesat_apds_tpu_torch.core.config import (
         AkazeConfig, MatchConfig, PipelineConfig, PnPConfig, RansacConfig)
 
-    if mode in ("fast", "hybrid"):
-        raise NotImplementedError(
-            f"descriptor mode {mode!r} is not ported to "
-            "cubesat_apds_tpu_torch yet (slice 8 of its ROADMAP); only "
-            "'exact' runs")
-    if mode != "exact":
+    if mode not in MODES:
         raise ValueError(f"unknown descriptor mode {mode!r}")
     return PipelineConfig(
-        akaze=AkazeConfig(capacity=capacity, descriptor_mode="exact",
-                          orientation_mode="exact"),
+        akaze=AkazeConfig(capacity=capacity, **MODES[mode]),
         match=MatchConfig(ratio=0.75),
         ransac=RansacConfig(num_hypotheses=256),
         pnp=PnPConfig(num_hypotheses=128))

@@ -320,8 +320,8 @@ TERRAIN_KEYS = RUN_KEYS - {"inl_med"} | {"pnp_inl_med"}
 def test_accuracy_runner_keys_and_conditions():
     """The port's runner at a small size (512² mosaic, 256² frames,
     capacity 512; one scene per condition, one relief): the JAX runner's
-    conditions, constants and result keys; every frame localized; fast and
-    hybrid refused before any work."""
+    conditions, constants, mode configs and result keys; every frame
+    localized; the fast and hybrid modes run too, each with its own DB."""
     ref = _jax_runner()
     assert A.CONDITIONS == ref.CONDITIONS
     assert A.TERRAIN_CONDITIONS == ref.TERRAIN_CONDITIONS
@@ -333,19 +333,25 @@ def test_accuracy_runner_keys_and_conditions():
                 == ref._cond_rng(2026, cond, 60).random(3)).all()
     small = dict(device="cpu", mosaic_size=512, frame_size=256, capacity=512,
                  progress=lambda s: None)
-    res = A.run(1, **small)
-    assert set(res) == {"exact"} and set(res["exact"]) == set(ref.CONDITIONS)
-    for agg in res["exact"].values():
-        assert set(agg) == RUN_KEYS
-        assert agg["ok_rate"] == 1.0 and agg["inl_med"] > 20
+    for mode in ("exact", "fast", "hybrid"):
+        got_cfg, ref_cfg = A.mode_config(mode), ref.mode_config(mode)
+        assert got_cfg.akaze.descriptor_tag == ref_cfg.akaze.descriptor_tag
+        assert got_cfg.akaze.orientation_mode == \
+            ref_cfg.akaze.orientation_mode
+    res = A.run(1, modes=("exact", "fast", "hybrid"), **small)
+    assert set(res) == {"exact", "fast", "hybrid"}
+    for mode in res:
+        assert set(res[mode]) == set(ref.CONDITIONS)
+        for agg in res[mode].values():
+            assert set(agg) == RUN_KEYS
+            assert agg["ok_rate"] == 1.0 and agg["inl_med"] > 20
     ter = A.run_terrain(1, reliefs=(60.0,), **small)
     assert set(ter) == {"relief60"}
     assert set(ter["relief60"]["exact"]) == set(ref.TERRAIN_CONDITIONS)
     for agg in ter["relief60"]["exact"].values():
         assert set(agg) == TERRAIN_KEYS
-    for mode in ("fast", "hybrid"):
-        with pytest.raises(NotImplementedError, match="slice 8"):
-            A.run(1, modes=("exact", mode), **small)
+    with pytest.raises(ValueError, match="unknown descriptor mode"):
+        A.run(1, modes=("exact", "approx"), **small)
 
 
 # ---- the slice: a rendered frame through both packages ---------------------

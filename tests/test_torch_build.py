@@ -304,7 +304,8 @@ def test_preprocess_rows_match_jax(built):
 def test_preprocess_checkpoint_resume(built, tmp_path, monkeypatch):
     """A crashed build resumes from its checkpoint to the store of an
     uninterrupted run; a cursor of other run parameters is refused; the
-    checkpoint is removed on success; mesh= raises."""
+    checkpoint is removed on success; a build over a dp=2 mesh of CPU
+    slots gives the same store bit for bit."""
     img, _, _, ref, ref_stats = built
     t_r, _ = _rasters(img)
 
@@ -344,8 +345,17 @@ def test_preprocess_checkpoint_resume(built, tmp_path, monkeypatch):
         for c in a:
             np.testing.assert_array_equal(a[c], b[c], err_msg=c)
         np.testing.assert_array_equal(da, db)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tpp.preprocess(ds(), config=TCFG, amount_lod=1, mesh=object())
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=2, tp=1, devices=["cpu", "cpu"])
+    dp_store, dp_stats = tpp.preprocess(ds(), config=TCFG, amount_lod=2,
+                                        tile_batch=1, mesh=mesh)
+    assert (dp_stats.keypoints, dp_stats.tiles) == (ref_stats.keypoints,
+                                                   ref_stats.tiles)
+    for k in ref._kp:
+        np.testing.assert_array_equal(ref._kp[k], dp_store._kp[k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(ref._desc, dp_store._desc)
 
 
 def test_preprocess_ragged_grid_stores_no_duplicates(tmp_path):

@@ -287,7 +287,7 @@ def test_capacity_slots_equal_the_live_prefix():
 
     cap = 1024
     imgs = torch.stack([torch.from_numpy(_frame(s)) for s in (7, 3)])
-    kps, packed, level_hw = takaze._front_end(imgs, TCFG, cap, None)
+    kps, packed, level_hw, _ = takaze._front_end(imgs, TCFG, cap, None)
     counts = kps.valid.sum(-1)
     n_live = int(counts.max())
     assert 0 < n_live < cap and int(counts.min()) < n_live

@@ -326,9 +326,32 @@ def test_pruned_stream_equals_pruned_step(db):
 
 
 def test_stream_refuses_a_mesh(db):
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        StreamingLocalizer(db, CAM, CFG, batch=4, mesh=object(),
-                           device="cpu")
+    """A mesh with a pruned DB is refused, as the JAX package refuses it:
+    the spatial window is a single-device structure."""
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+
+    pdb = tloc.make_pruned_db(db, db, window_capacity=512)
+    with pytest.raises(ValueError, match="not with a mesh"):
+        StreamingLocalizer(pdb, CAM, CFG, batch=4,
+                           mesh=make_mesh(dp=2, tp=2, devices=["cpu"] * 4))
+
+
+def test_mesh_stream_equals_batch_stream(db):
+    """A stream over a dp=2 × tp=2 mesh of CPU slots (batch 3 rounded up
+    to 4; five frames, the last batch padded): every frame's packed
+    outputs equal the batch-4 stream's without a mesh, bit for bit."""
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+
+    frames = _frames(5)
+    mesh = make_mesh(dp=2, tp=2, devices=["cpu"] * 4)
+    s = StreamingLocalizer(db, CAM, CFG, batch=3, mesh=mesh)
+    assert s.batch == 4 and s.device == torch.device("cpu")
+    got = list(s.run(frames))
+    want = list(_stream(db, batch=4).run(frames))
+    assert [r.frame_id for r in got] == list(range(5))
+    for r, w in zip(got, want):
+        np.testing.assert_array_equal(_stream_packed(r), _stream_packed(w))
+    assert got[2].homography_ok
 
 
 # --- the slice against JAX -------------------------------------------------
