@@ -26,7 +26,8 @@
    ("device_ms", the host's per-call cost left out), and each kernel's
    bound (the least time the card could take for the same work).
 3. Slice phase: bench.py's scene (512² frame from seed 42, a 10,240-row DB
-   built by the port from the frame rolled by (7, 13)) through
+   built by the port from the frame rolled by (7, 13); the scene comes from
+   cubesat_apds_tpu_torch.bench.scene, which `apds-torch bench` times) through
    Localizer.localize with solve_pose=True: the homography must recover the
    (13, 7) px shift within 1 px, the launch counters must show 15 kernel-A
    and 2 kernel-B launches for the frame, and the same frame run through
@@ -154,6 +155,30 @@
    4 scenes each, in fast and hybrid: tests/test_accuracy.py's bounds.
    (d) a store built in fast mode: check_descriptor_mode accepts fast and
    refuses exact, and the store serves a nominal frame.
+15. CLI phase (slice 9; cubesat_apds_tpu_torch.cli.main called in-process
+   on cuda:0, its stdout parsed, the launch counters zeroed just before
+   and read just after each call): (a) preprocess of the build image's
+   2048² corner as 2×2 GeoTIFF members with a DEM, --binary --lod 3
+   --tile-batch 8: the store equals the in-process preprocess +
+   write_binary_store bit for bit, kernel A 15 and B 2 launches a tile
+   batch; again with -c 2 --device cuda:0,cuda:0: the same rows, kernel A
+   30 a batch. (b) localize of a 512² frame cut at (700, 900), saved as a
+   PNG: H puts the offset within 1 px, the JSON equals
+   Localizer.localize's bit for bit; --pruned (no fallback),
+   --coarse-to-fine, --viz (a PNG), --profile (a trace holding both
+   kernels). (c) 24 pool frames from the stream phase's 1M binary store
+   (written again from seed 42), --batch 8 --mesh 2x2 over four slots of
+   cuda:0: every line equal to the in-process mesh stream's, kernel 4
+   four times a batch, a summary of 24 frames; --pruned --batch 8: no
+   fallback. (d) match of bench.py's frame and its (7, 13) roll, plain
+   and --crosscheck, -o: the counts on the card equal those under
+   --device cpu. (e) calibrate of the 12 boards as PNGs: K within 1e-5 of
+   calibrate_from_images; localize --camera takes the file. (f) store
+   info, delete (the coarsest tile) and compact on a copy of (a): the
+   counts add up, the frame's H unchanged. (g) bench.run(10, 3): its JSON
+   line, a rate above 0 on the card. (h) `python -m
+   cubesat_apds_tpu_torch.cli localize` in a process of its own: exit 0,
+   the JSON of (b); its wall time.
 
 Prints a {"kernels": [...]} JSON line, then as its LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -206,16 +231,6 @@ def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
     log(f"  ok: {msg}")
-
-
-def make_frame(rng, n=512):
-    """bench.py:_make_frame — corner-rich synthetic satellite frame."""
-    img = np.zeros((n, n), np.float32)
-    for _ in range(120):
-        cy, cx = rng.integers(10, n - 50, 2)
-        s = int(rng.integers(8, 40))
-        img[cy:cy + s, cx:cx + s] = rng.uniform(0.2, 1.0)
-    return img
 
 
 def card_line():
@@ -687,47 +702,17 @@ def rotation_deg(rv_a, rv_b):
 
 
 def slice_phase(torch, dev, profile_dir):
-    from cubesat_apds_tpu_torch.core.config import (
-        AkazeConfig, MatchConfig, PipelineConfig, PnPConfig, RansacConfig)
-    from cubesat_apds_tpu_torch.core.types import CameraModel
-    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.bench import scene
     from cubesat_apds_tpu_torch.ops.kernels import diffusion, sample_kernel
-    from cubesat_apds_tpu_torch.pipelines.localize import DeviceDb, Localizer
+    from cubesat_apds_tpu_torch.pipelines.localize import Localizer
 
-    rng = np.random.default_rng(SEED)
-    config = PipelineConfig(akaze=AkazeConfig(capacity=2048),
-                            match=MatchConfig(ratio=0.75),
-                            ransac=RansacConfig(num_hypotheses=256),
-                            pnp=PnPConfig(num_hypotheses=64))
-    frame = make_frame(rng)
-
-    # bench.py's DB: the port's features of the frame rolled by (7, 13),
-    # tiled to 10,240 rows and perturbed past the first copy.
+    # bench.py's scene, from the port's bench module: its DB is the port's
+    # features of the frame rolled by (7, 13), tiled to 10,240 rows and
+    # perturbed past the first copy.
     t0 = time.perf_counter()
-    feats = detect_and_compute(
-        torch.from_numpy(np.roll(frame, (7, 13), axis=(0, 1))).to(dev),
-        AkazeConfig(capacity=2048))
-    desc = feats.descriptors.cpu().numpy()
-    xy = feats.keypoints.xy.cpu().numpy()
-    valid = feats.keypoints.valid.cpu().numpy()
-    log(f"DB features: {int(valid.sum())} keypoints "
+    frame, db, camera, config = scene(dev)
+    log(f"DB features: {int(db.valid[:2048].sum())} keypoints "
         f"({time.perf_counter() - t0:.2f} s incl. first use)")
-    m = 10240
-    reps = m // len(desc) + 1
-    desc_db = np.tile(desc, (reps, 1))[:m]
-    xy_db = np.tile(xy, (reps, 1))[:m]
-    valid_db = np.tile(valid, reps)[:m]
-    flip = rng.integers(0, 256, desc_db.shape, dtype=np.uint8)
-    flip[:len(desc)] = 0
-    desc_db = desc_db ^ (flip & rng.integers(0, 2, desc_db.shape,
-                                             dtype=np.uint8) * 255)
-    obj = np.concatenate([xy_db, np.zeros((m, 1), np.float32)], axis=1)
-    db = DeviceDb(descriptors=torch.from_numpy(desc_db),
-                  xy=torch.from_numpy(xy_db.astype(np.float32)),
-                  valid=torch.from_numpy(valid_db),
-                  obj_points=torch.from_numpy(obj.astype(np.float32)),
-                  has_world=True)
-    camera = CameraModel.ideal(500.0, 500.0, 256.0, 256.0)
     gpu = Localizer(db, camera, config, device=dev)
     frame_t = torch.from_numpy(frame)
 
@@ -838,12 +823,9 @@ def timed_steps(torch, step, label):
 
 
 def serving_config():
-    from cubesat_apds_tpu_torch.core.config import (
-        AkazeConfig, MatchConfig, PipelineConfig, PnPConfig, RansacConfig)
-    return PipelineConfig(akaze=AkazeConfig(capacity=2048),
-                          match=MatchConfig(ratio=0.75),
-                          ransac=RansacConfig(num_hypotheses=256),
-                          pnp=PnPConfig(num_hypotheses=64))
+    """bench.py's PipelineConfig (the port's bench module)."""
+    from cubesat_apds_tpu_torch.bench import bench_config
+    return bench_config()
 
 
 def inlier_ids(res, sel=None):
@@ -862,6 +844,7 @@ def big_db_scene(torch, dev, config):
     1,048,576 rows, xy over [0, 8192)², world points (xy, 0). Returns
     (DeviceDb, the frame as a host tensor); every process that calls it
     on the same card gets the same bits."""
+    from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
     from cubesat_apds_tpu_torch.pipelines.localize import DeviceDb
 
@@ -1209,6 +1192,7 @@ def stream_phase(torch, dev, profile_dir):
     and pruned at batch 1 and 8."""
     import tempfile
 
+    from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.core.types import CameraModel
     from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
     from cubesat_apds_tpu_torch.pipelines.localize import (
@@ -2170,6 +2154,7 @@ def calibration_phase(torch, dev, card):
     same views on the CPU give K within 1e-3 relative; the LM loop runs
     under set_sync_debug_mode("error"); undistort_frames on 8 frames of
     512², card against CPU within 1e-5."""
+    from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.core.config import CalibConfig
     from cubesat_apds_tpu_torch.core.types import CameraModel
     from cubesat_apds_tpu_torch.ops.geometry import calibration as C
@@ -2616,6 +2601,7 @@ def mesh_two_processes(torch, dev, db, frame_t, config):
 
 def mesh_phase(torch, dev, loc, ctx, image):
     """Slice 7 on one card, parts (a)–(e) (module docstring, step 13)."""
+    from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
 
     config = serving_config()
@@ -2713,6 +2699,7 @@ def modes_features(torch, dev):
     time against exact mode."""
     import dataclasses
 
+    from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.ops.features.akaze import (
         _front_end, detect_and_compute, orient_describe)
 
@@ -2769,6 +2756,7 @@ def modes_slice(torch, dev):
     gate)."""
     import dataclasses
 
+    from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.core.types import CameraModel
     from cubesat_apds_tpu_torch.pipelines.localize import Localizer
 
@@ -2882,6 +2870,455 @@ def modes_phase(torch, dev):
             "seconds": secs}
 
 
+# ---- the CLI phase: the port's command line on the card -------------------
+
+CLI_CROP = 2048                   # the build image's corner, 2×2 members
+CLI_AT = (700, 900)               # (x, y) of the localize frame in the crop
+CLI_STREAM_FRAMES = 24
+
+
+def _cli(torch, argv):
+    """cubesat_apds_tpu_torch.cli.main(argv) in-process: its stdout, the
+    kernel launches of the call (counters zeroed just before, read just
+    after) and its seconds. A non-zero exit fails the phase."""
+    import contextlib
+    import io
+
+    from cubesat_apds_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_launches()
+    if rc != 0:
+        raise SmokeFailure(f"apds-torch {' '.join(argv)}: exit {rc}")
+    log(f"apds-torch {' '.join(argv)}: {secs:.2f} s, launches {launches}")
+    return buf.getvalue(), launches, secs
+
+
+def _cli_json(text, opener="{"):
+    return json.loads(text[text.index(opener):])
+
+
+def _cli_lines(text):
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def _same_store_rows(a, b):
+    """Two stores on disk: the same tile records and, per LoD, the same
+    rows (every column and the descriptors) bit for bit."""
+    from cubesat_apds_tpu_torch.store import open_store
+
+    sa, sb = open_store(a), open_store(b)
+    recs = [sorted((i, r.x_start, r.y_start, r.x_end, r.y_end,
+                    r.level_of_detail) for i, r in s.images.items())
+            for s in (sa, sb)]
+    if recs[0] != recs[1]:
+        return False
+    for lod in sorted({r[5] for r in recs[0]}):
+        (ca, da), (cb, db) = (sa.read_keypoints_from_lod(lod),
+                              sb.read_keypoints_from_lod(lod))
+        if not (np.array_equal(da, db) and set(ca) == set(cb) and all(
+                np.array_equal(ca[k], cb[k]) for k in ca)):
+            return False
+    return True
+
+
+def _offset_err(H, at):
+    """How far H puts the frame's origin from the crop offset `at`."""
+    H = np.asarray(H, np.float64)
+    return float(np.hypot(H[0, 2] / H[2, 2] - at[0], H[1, 2] / H[2, 2] - at[1]))
+
+
+def cli_build(torch, dev, root, crop):
+    """(a) preprocess: the 2048² crop as 2×2 GeoTIFF members of 1024² with
+    a seeded DEM, built with --binary --lod 3 --tile-batch 8 -e, equal to
+    the in-process preprocess + write_binary_store bit for bit; then -c 2
+    over two slots of cuda:0, the same rows, kernel A 30 times a batch."""
+    import os
+
+    from cubesat_apds_tpu_torch.core.config import PipelineConfig
+    from cubesat_apds_tpu_torch.io.mosaic import MosaicDataset
+    from cubesat_apds_tpu_torch.io.tiff import write_geotiff
+    from cubesat_apds_tpu_torch.ops.image import lod_tile_grid
+    from cubesat_apds_tpu_torch.pipelines.preprocess import preprocess
+    from cubesat_apds_tpu_torch.store.binary_store import write_binary_store
+
+    tiles = os.path.join(root, "tiles")
+    os.makedirs(tiles)
+    rgb = np.round(np.stack([crop, 0.85 * crop + 0.1, 0.7 * crop + 0.2],
+                            -1) * 255).astype(np.uint8)
+    m = CLI_CROP // 2
+    for ty in range(2):
+        for tx in range(2):
+            write_geotiff(os.path.join(tiles, f"m{ty}{tx}.tif"),
+                          rgb[ty * m:(ty + 1) * m, tx * m:(tx + 1) * m],
+                          [10.0 + tx * m * PX_DEG, PX_DEG, 0.0,
+                           56.0 - ty * m * PX_DEG, 0.0, -PX_DEG])
+    dem = os.path.join(root, "dem.tif")
+    step = CLI_CROP * PX_DEG / 32
+    write_geotiff(dem, np.random.default_rng(SEED).uniform(
+        100.0, 101.0, (32, 32)).astype(np.float32),
+        [10.0, step, 0.0, 56.0, 0.0, -step])
+    store = os.path.join(root, "store")
+    argv = ["preprocess", "--dataset", tiles, "--store", store, "--binary",
+            "--lod", "3", "--tile-batch", "8", "-e", dem]
+    out, launches, secs = _cli(torch, ["--device", "cuda:0"] + argv)
+    ds = MosaicDataset.from_folder(tiles, device=dev)
+    ref, ref_stats = preprocess(ds, config=PipelineConfig(), amount_lod=3,
+                                tile_batch=8, elevation_path=dem)
+    ref_path = os.path.join(root, "ref")
+    write_binary_store(ref, ref_path)
+    batches = sum(-(-len(g[4]) * len(g[5]) // 8)
+                  for g in lod_tile_grid(CLI_CROP, CLI_CROP, 3))
+    check(f"{ref_stats.keypoints} keypoints, {ref_stats.tiles} tiles" in out
+          and _same_store_rows(store, ref_path),
+          f"preprocess: the CLI's store ({ref_stats.keypoints} keypoints, "
+          f"{ref_stats.tiles} tiles) equals the in-process build bit for bit")
+    check(launches == {"fed_cycle": 15 * batches,
+                       "sample_patches": 2 * batches, "knn2_hamming": 0},
+          f"preprocess: kernel A 15 and B 2 launches in each of {batches} "
+          "tile batches")
+    store2 = os.path.join(root, "store_c2")
+    _, launches2, secs2 = _cli(torch, ["--device", "cuda:0,cuda:0"] + [
+        store2 if a == store else a for a in argv] + ["-c", "2"])
+    check(_same_store_rows(store2, ref_path),
+          "preprocess -c 2: the same rows as the in-process build")
+    check(launches2 == {"fed_cycle": 30 * batches,
+                        "sample_patches": 4 * batches, "knn2_hamming": 0},
+          "preprocess -c 2: kernel A 30 and B 4 launches a tile batch")
+    return store, ds, {"preprocess": (launches, secs),
+                       "preprocess -c 2": (launches2, secs2)}
+
+
+def cli_localize(torch, dev, root, store, ds):
+    """(b) localize: a 512² frame cut from the crop at CLI_AT, as a PNG;
+    H puts the offset within 1 px and the JSON equals the in-process
+    Localizer.localize of the same decoded frame bit for bit; then
+    --pruned (no fallback), --coarse-to-fine, --viz and --profile."""
+    import os
+
+    from cubesat_apds_tpu_torch.cli import _load_gray
+    from cubesat_apds_tpu_torch.core.config import PipelineConfig
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.pipelines.localize import Localizer
+    from cubesat_apds_tpu_torch.pipelines.preprocess import tile_gray
+    from cubesat_apds_tpu_torch.store import open_store
+    from PIL import Image
+
+    x0, y0 = CLI_AT
+    gray = tile_gray(ds, x0, y0, 512, 512, 512, 512).cpu().numpy()
+    frame = os.path.join(root, "frame.png")
+    Image.fromarray(np.round(gray * 255).astype(np.uint8)).save(frame)
+    dv = ["--device", "cuda:0"]
+    base = ["localize", "--store", store, "--frame", frame]
+    out, launches, secs = _cli(torch, dv + base)
+    got = _cli_json(out)
+    err = _offset_err(got["homography"], CLI_AT)
+    log(f"localize: keypoints {got['keypoints']} matches {got['matches']} "
+        f"inliers {got['inliers']} pose ok {got.get('pose_ok')}; offset "
+        f"error {err:.4f} px")
+    check(got["homography_ok"] and err < 1.0,
+          f"localize: H puts the frame at {CLI_AT} within 1 px")
+    loc = Localizer(open_store(store), CameraModel.ideal(512.0, 512.0, 256.0,
+                                                         256.0),
+                    PipelineConfig(), device=dev)
+    res = loc.localize(torch.from_numpy(_load_gray(frame)))
+    rows = int(loc.device_db(0).valid.sum())
+    check(got["keypoints"] == int(res.num_keypoints)
+          and got["matches"] == int(res.num_matches)
+          and got["inliers"] == int(res.homography.num_inliers)
+          and got["homography"] == res.homography.H.cpu().numpy().tolist()
+          and got["pose_ok"] == bool(res.pose.ok)
+          and got["rvec"] == res.pose.rvec.cpu().numpy().tolist(),
+          "localize: keypoints, matches, inliers, H and pose equal "
+          "Localizer.localize's bit for bit")
+    check(launches == {"fed_cycle": 15, "sample_patches": 2,
+                       "knn2_hamming": int(rows > PipelineConfig()
+                                           .match.db_block)},
+          f"localize: kernel A 15, B 2 launches; kNN-2 where LoD 0's {rows} "
+          "rows pass db_block")
+    if got["pose_ok"]:
+        check(len(got["camera_position"]) == 3
+              and len(got["attitude_quat_wxyz"]) == 4,
+              "localize: the attitude block (position, quaternion)")
+    out_p, l_p, _ = _cli(torch, dv + base + ["--pruned"])
+    pr = _cli_json(out_p)
+    check(pr["pruned"]["coarse_ok"] and not pr["pruned"]["fallback"]
+          and _offset_err(pr["homography"], CLI_AT) < 1.0,
+          f"localize --pruned: coarse fix, no fallback "
+          f"({pr['pruned']['window_rows']} window rows), offset within 1 px")
+    out_c, l_c, _ = _cli(torch, dv + base + ["--coarse-to-fine"])
+    c2f = _cli_json(out_c)
+    check(c2f["homography_ok"]
+          and _offset_err(c2f["homography"], CLI_AT) < 1.0,
+          f"localize --coarse-to-fine (coarse ok {c2f['coarse_ok']}): "
+          "offset within 1 px")
+    viz = os.path.join(root, "viz.png")
+    _cli(torch, dv + base + ["--viz", viz])
+    with Image.open(viz) as im:
+        check(im.size == (512, 512), "localize --viz wrote a 512² PNG")
+    prof_dir = os.path.join(root, "trace")
+    _cli(torch, dv + base + ["--profile", prof_dir])
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        trace = f.read()
+    check("fed_cycle_kernel" in trace and "sample_patches_kernel" in trace,
+          f"localize --profile: the trace ({len(trace) / 1e6:.1f} MB) holds "
+          "the fed_cycle and sample_patches kernels")
+    return frame, got, {"localize": (launches, secs),
+                        "localize --pruned": (l_p, None),
+                        "localize --coarse-to-fine": (l_c, None)}
+
+
+def cli_stream(torch, dev, root):
+    """(c) stream: 24 of the stream phase's pool frames as PNGs, served from
+    its 1,048,576-row binary store (written again from seed 42) with
+    --batch 8 --mesh 2x2 over four slots of cuda:0: every line's H equal to
+    the in-process mesh stream's, kernel 4 four times a batch, a summary
+    of 24 frames; then --pruned --batch 8 with no frame falling back."""
+    import os
+
+    from cubesat_apds_tpu_torch.bench import make_frame
+    from cubesat_apds_tpu_torch.core.config import PipelineConfig
+    from cubesat_apds_tpu_torch.core.types import CameraModel
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.parallel.serve import shard_device_db
+    from cubesat_apds_tpu_torch.pipelines.localize import load_device_db
+    from cubesat_apds_tpu_torch.pipelines.stream import StreamingLocalizer
+    from cubesat_apds_tpu_torch.store import open_store
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    base_u8 = (make_frame(rng) * 255).astype(np.uint8)
+    shifts = [tuple(int(v) for v in d)
+              for d in np.random.default_rng(SEED + 3).integers(-4, 5, (8, 2))]
+    pool = [np.roll(base_u8, (-dy, -dx), axis=(0, 1)) for dx, dy in shifts]
+    t0 = time.perf_counter()
+    p1m = write_stream_stores(torch, dev, root, base_u8,
+                              serving_config())["1M"][0]
+    frames_dir = os.path.join(root, "frames")
+    os.makedirs(frames_dir)
+    frames = [pool[i % len(pool)] for i in range(CLI_STREAM_FRAMES)]
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(frames_dir, f"f{i:02d}.png"))
+    log(f"stream: the 1M store and {CLI_STREAM_FRAMES} frames written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    argv = ["stream", "--store", p1m, "--frames", frames_dir, "--batch", "8"]
+    out, launches, secs = _cli(torch, ["--device", ",".join(["cuda:0"] * 4)]
+                               + argv + ["--mesh", "2x2"])
+    lines = _cli_lines(out)
+    recs, summary = lines[:-1], lines[-1]["summary"]
+    batches = CLI_STREAM_FRAMES // 8
+
+    config = PipelineConfig()
+    db = load_device_db(open_store(p1m), 0, match_config=config.match,
+                        device=dev)
+    mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
+    s = StreamingLocalizer(shard_device_db(mesh, db, match_config=config.match),
+                           CameraModel.ideal(512.0, 512.0, 256.0, 256.0),
+                           config, solve_pose=db.has_world, batch=8,
+                           mesh=mesh)
+    ref = list(s.run(frames))
+    check(summary["frames"] == CLI_STREAM_FRAMES == len(recs)
+          and [os.path.basename(r["frame"]) for r in recs]
+          == [f"f{i:02d}.png" for i in range(CLI_STREAM_FRAMES)],
+          f"stream --mesh 2x2: {CLI_STREAM_FRAMES} lines in order and a "
+          "summary of as many frames")
+    check(all(r["homography"] == x.homography.tolist()
+              and r["inliers"] == x.num_inliers
+              and r["matches"] == x.num_matches for r, x in zip(recs, ref)),
+          "stream --mesh 2x2: every line's H, inliers and matches equal the "
+          "in-process mesh stream's")
+    check(launches["knn2_hamming"] == 4 * batches
+          and launches["fed_cycle"] == 30 * batches
+          and launches["sample_patches"] == 4 * batches,
+          f"stream --mesh 2x2: kNN-2 4, kernel A 30, B 4 launches in each of "
+          f"{batches} batches (one kNN-2 a shard)")
+    log(f"stream --mesh 2x2: {summary}")
+    out_p, l_p, secs_p = _cli(torch, ["--device", "cuda:0"] + argv
+                              + ["--pruned"])
+    sp = _cli_lines(out_p)[-1]["summary"]
+    log(f"stream --pruned: {sp}")
+    check(sp["frames"] == CLI_STREAM_FRAMES and sp["fallback_frames"] == 0,
+          "stream --pruned --batch 8: no frame falls back")
+    return {"stream --mesh 2x2": (launches, secs),
+            "stream --pruned": (l_p, secs_p)}, summary, sp
+
+
+def cli_match(torch, root):
+    """(d) match: bench.py's frame against its (7, 13) roll, plain and
+    --crosscheck, with -o: the counts equal those under --device cpu."""
+    import os
+
+    from PIL import Image
+
+    from cubesat_apds_tpu_torch.bench import make_frame
+
+    frame = make_frame(np.random.default_rng(SEED))
+    paths = []
+    for name, img in (("a", frame), ("b", np.roll(frame, (7, 13), (0, 1)))):
+        paths.append(os.path.join(root, f"{name}.png"))
+        Image.fromarray(np.round(img * 255).astype(np.uint8)).save(paths[-1])
+    runs = {}
+    for extra in ([], ["--crosscheck"]):
+        viz = os.path.join(root, "m.png")
+        out, launches, secs = _cli(torch, ["--device", "cuda:0", "match"]
+                                   + paths + extra + ["-o", viz])
+        card = _cli_json(out)
+        cpu = _cli_json(_cli(torch, ["--device", "cpu", "match"] + paths
+                             + extra)[0])
+        label = "match" + "".join(" " + e for e in extra)
+        check(card["keypoints"] == cpu["keypoints"]
+              and card["matches"] == cpu["matches"] > 0
+              and card["viz"] == viz and os.path.exists(viz),
+              f"{label}: keypoints {card['keypoints']}, matches "
+              f"{card['matches']} on the card = on the CPU; -o written")
+        check(launches == {"fed_cycle": 30, "sample_patches": 4,
+                           "knn2_hamming": 0},
+              f"{label}: kernel A 15 and B 2 launches an image")
+        runs[label] = (launches, secs)
+    return runs
+
+
+def cli_calibrate(torch, dev, root, store, frame):
+    """(e) calibrate: the calibration phase's 12 boards as PNGs; K of
+    -o cam.json within 1e-5 of the in-process calibrate_from_images on the
+    same decoded images; localize --camera takes the file."""
+    import os
+
+    from cubesat_apds_tpu_torch.pipelines.calibrate import (
+        calibrate_from_images, read_gray_images)
+    from PIL import Image
+
+    boards = os.path.join(root, "boards")
+    os.makedirs(boards)
+    for i, v in enumerate(calibration_boards(torch, dev,
+                                             np.random.default_rng(SEED))):
+        Image.fromarray(np.round(np.clip(v, 0, 1) * 255).astype(np.uint8)) \
+            .save(os.path.join(boards, f"b{i:02d}.png"))
+    cam = os.path.join(root, "cam.json")
+    out, launches, secs = _cli(torch, ["--device", "cuda:0", "calibrate",
+                                       boards, "7x6", "-o", cam])
+    with open(cam) as f:
+        K = np.asarray(json.load(f)["K"])
+    res, found = calibrate_from_images(read_gray_images(boards), CAL_GRID,
+                                       device=dev)
+    err = float(np.abs(K - res.camera.K.cpu().numpy()).max())
+    check(f"views used: {CAL_VIEWS}/{CAL_VIEWS}" in out and err <= 1e-5,
+          f"calibrate: every view used; K within 1e-5 of the in-process "
+          f"calibration ({err:.2e}; fx {K[0, 0]:.3f}, cx {K[0, 2]:.3f})")
+    out_l, _, _ = _cli(torch, ["--device", "cuda:0", "localize", "--store",
+                               store, "--frame", frame, "--camera", cam])
+    check("homography" in _cli_json(out_l),
+          "localize --camera cam.json takes the calibrated camera")
+    return {"calibrate": (launches, secs)}
+
+
+def cli_store(torch, root, store, frame, ref):
+    """(f) store: info, delete (the coarsest LoD's tile) and compact on a
+    copy of (a)'s store; the live counts add up and the compacted store
+    serves (b)'s frame with the same H."""
+    import os
+    import shutil
+
+    from cubesat_apds_tpu_torch.store import open_store
+
+    copy = os.path.join(root, "store_admin")
+    shutil.copytree(store, copy)
+    info = _cli_json(_cli(torch, ["store", "info", copy])[0])
+    images = open_store(copy).images
+    coarse = max(images, key=lambda i: images[i].level_of_detail)
+    dele = _cli_json(_cli(torch, ["store", "delete", copy, "--image-id",
+                                  str(coarse)])[0])
+    comp = _cli_json(_cli(torch, ["store", "compact", copy])[0])
+    after = _cli_json(_cli(torch, ["store", "info", copy])[0])
+    check(dele["keypoints_removed"] + dele["keypoints_live"]
+          == info["keypoints_live"] == info["keypoints_total"]
+          and comp["kept"] == dele["keypoints_live"] == after["keypoints_live"]
+          == after["keypoints_total"]
+          and comp["dropped"] == dele["keypoints_removed"] > 0
+          and after["tiles"] == info["tiles"] - 1,
+          f"store: {info['keypoints_live']} live = {dele['keypoints_live']} "
+          f"kept + {dele['keypoints_removed']} removed (tile {coarse}, LoD "
+          f"{images[coarse].level_of_detail}); compacted to one segment")
+    got = _cli_json(_cli(torch, ["--device", "cuda:0", "localize", "--store",
+                                 copy, "--frame", frame])[0])
+    check(got["homography"] == ref["homography"]
+          and got["keypoints"] == ref["keypoints"]
+          and got["matches"] == ref["matches"],
+          "store: the compacted store serves the frame with the same H")
+
+
+def cli_phase(torch, dev, card, crop):
+    """The port's command line on cuda:0, through cli.main in-process:
+    (a) preprocess, (b) localize, (c) stream, (d) match, (e) calibrate,
+    (f) store, (g) bench.run, (h) one real `python -m` process."""
+    import os
+
+    from cubesat_apds_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        store, ds, runs = cli_build(torch, dev, root, crop)
+        launches.update(runs)
+        frame, ref, runs = cli_localize(torch, dev, root, store, ds)
+        launches.update(runs)
+        runs, mesh_summary, pruned_summary = cli_stream(torch, dev, root)
+        launches.update(runs)
+        launches.update(cli_match(torch, root))
+        launches.update(cli_calibrate(torch, dev, root, store, frame))
+        cli_store(torch, root, store, frame, ref)
+
+        _reset_launches()
+        line = bench.run(iters=10, reps=3, device=dev)
+        torch.cuda.synchronize()
+        bench_launches = _read_launches()
+        print(json.dumps(line), flush=True)
+        check(line["value"] > 0
+              and torch.cuda.get_device_name(0) in line["device"]
+              and bench_launches == {"fed_cycle": 15 * 34,
+                                     "sample_patches": 2 * 34,
+                                     "knn2_hamming": 0},
+              f"bench.run(iters=10, reps=3): {line['value']} frames/s on "
+              f"{line['device']}; kernels A and B in each of 34 "
+              "extractions (the DB's, 3 warm-up and 30 timed steps)")
+        launches["bench"] = (bench_launches, None)
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "cubesat_apds_tpu_torch.cli", "localize",
+             "--store", store, "--frame", frame], cwd=repo,
+            capture_output=True, text=True, timeout=300)
+        cold_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+        cold = _cli_json(proc.stdout) if proc.returncode == 0 else {}
+        check(proc.returncode == 0
+              and {k: v for k, v in cold.items() if k != "seconds"}
+              == {k: v for k, v in ref.items() if k != "seconds"},
+              f"python -m cubesat_apds_tpu_torch.cli localize (a process of "
+              f"its own, default device): exit 0, the JSON of (b), in "
+              f"{cold_s:.2f} s wall")
+    secs = time.perf_counter() - t_phase
+    for label, (l, s) in launches.items():
+        if not label.startswith(("calibrate", "store")):
+            check(l["fed_cycle"] > 0 and l["sample_patches"] > 0,
+                  f"{label}: kernels A and B launched")
+    log(f"card: {card} — CLI phase {secs:.1f} s; bench {line['value']} "
+        f"frames/s (reps {line['reps']}); cold `python -m` localize "
+        f"{cold_s:.2f} s; stream --mesh 2x2 {mesh_summary['sustained_fps']} "
+        f"frames/s, --pruned {pruned_summary['sustained_fps']} frames/s")
+    return {"seconds": secs, "bench": line, "cold_start_s": cold_s,
+            "launches": {k: v[0] for k, v in launches.items()}}
+
+
 def profile_step(torch, step, out_dir, name, frames_per_step=1):
     """torch.profiler over one warmed step: a table by kernel and a Chrome
     trace in out_dir, and the step's device-busy time and kernel count."""
@@ -2981,10 +3418,12 @@ def main(argv=None):
             del store, ds
         tiled = tiled_phase(torch, dev, terrain, image)
         part_a = sync_phase(torch, dev, loc10k, frame_t, image)
+        cli_crop = image[:CLI_CROP, :CLI_CROP].copy()
         del loc10k, image, terrain
         accuracy = accuracy_phase(torch, dev)
         calibration = calibration_phase(torch, dev, card)
         modes = modes_phase(torch, dev)
+        cli = cli_phase(torch, dev, card, cli_crop)
         launches = dict(launches, knn2_hamming=big_launches["knn2_hamming"])
         for k in kernels:
             name = k["name"]
@@ -3007,6 +3446,8 @@ def main(argv=None):
             k["modes_launches_per_frame"] = {
                 label: r["launches"][name]
                 for label, r in modes["features"].items()}
+            k["cli_launches"] = {label: r[name]
+                                 for label, r in cli["launches"].items()}
         kernels[2]["mesh_knn_launches_per_call"] = {
             label: r["launches"] for label, r in mesh["knn"].items()}
         kernels[2]["mesh_knn_ms"] = {label: r["ms"]

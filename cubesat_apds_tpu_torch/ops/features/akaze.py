@@ -6,9 +6,11 @@ the batch) → det-Hessian detection → bf16 channel-packed level stacks →
 orientation and MLDB descriptors, both sampled through kernel B on CUDA
 (one launch each for the batch). The approximate descriptor modes
 ("fast", "hybrid") also build three blur-matched stacks, one per MLDB
-grid, and sample each through its own kernel-B launch. The per-keypoint
-stages run on every slot of the capacity, invalid slots masked to zeros,
-so a call reads nothing back to the host. One image is a batch of one.
+grid, and sample each through its own kernel-B launch. On the card the
+per-keypoint stages run on every slot of the capacity, invalid slots
+masked to zeros, so a call reads nothing back to the host; on the CPU
+they run on the live prefix, with the same bits. One image is a batch of
+one.
 
 `detect_and_compute_tiled` covers images past one scale space with
 overlapping tiles, a global contrast factor and a seam dedup.
@@ -83,9 +85,10 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
     `detect_and_compute` on each image alone.
 
     The front end runs on the whole batch (one kernel-A launch per level).
-    The per-keypoint stages run once for the batch, on all `capacity`
-    slots of every image (`orient_describe`), so nothing is read back to
-    the host and the call only queues work on the card. The detector's
+    The per-keypoint stages run once for the batch (`orient_describe`):
+    on the card on all `capacity` slots of every image, so nothing is
+    read back to the host and the call only queues work on the card; on
+    the CPU on the batch's live prefix (the same bits). The detector's
     top-K is exact whatever `config.detect_topk` says, and
     `config.sampler` is ignored: on CUDA both per-keypoint stages sample
     through kernel B, on CPU through the plain gather.
@@ -99,8 +102,9 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
                          f"{tuple(imgs.shape)}")
     kps, packed, level_hw, grids = _front_end(imgs, config, capacity,
                                               kcontrast)
-    angle, desc = orient_describe(kps, packed, level_hw, capacity, config,
-                                  grids)
+    n = (capacity if imgs.device.type == "cuda"
+         else int(kps.valid.sum(-1).max()))
+    angle, desc = orient_describe(kps, packed, level_hw, n, config, grids)
     kps = Keypoints(xy=kps.xy, size=kps.size, angle=angle,
                     response=kps.response, octave=kps.octave,
                     class_id=kps.class_id, valid=kps.valid)
@@ -126,8 +130,8 @@ def orient_describe(kps: Keypoints, packed, level_hw, n: int,
     zero past slot n. Invalid slots come out as zeros from both stages'
     masks, and the valid keypoints are a response-sorted prefix, so any
     n at or above the batch's largest live count gives the same bits;
-    `detect_and_compute_batch` runs all `capacity` slots, which needs no
-    host read of the count. In the approximate descriptor modes `grids`
+    `detect_and_compute_batch` runs all `capacity` slots on the card,
+    which needs no host read of the count. In the approximate descriptor modes `grids`
     holds `_grid_stacks`' three stacks, each sampled on its own (one
     kernel-B launch a grid on the card)."""
     bsz, capacity = kps.valid.shape

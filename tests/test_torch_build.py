@@ -20,6 +20,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -231,6 +232,85 @@ def test_tiled_extraction_is_independent_of_the_tile_batch(tiled):
     _, t, _, _, t3 = tiled
     for k, v in _feat_arrays(t3).items():
         np.testing.assert_array_equal(v, t[k], err_msg=k)
+
+
+def test_detection_on_jax_scale_space_equals_jax_op_by_op():
+    """Where the ~0.04 px keypoint gap above starts. JAX's own scale space
+    (Lt, Lsmooth, kcontrast) of the tie-rich 256² scene goes through the
+    port's detect_keypoints and through JAX's detect_keypoints run op by
+    op: keypoint count, class_id, xy and response are equal bit for bit,
+    and the det-Hessian maps too (but for values below 1e-37, which
+    XLA:CPU flushes to zero). JAX's jitted detection of the same scale
+    space is the reference that differs: XLA's fused det-Hessian moves
+    values by a few float32 ulps, which flips detections (measured: 423
+    keypoints against 422 op by op; 0.47% of the jitted keypoints have no
+    port twin on their level within 1e-3 px, and the largest offset to a
+    twin is 0.0237 px, against 2.36% and 0.0439 px when the port builds
+    its own scale space). Both steps are the reference's rounding, not a
+    formula of the port; the share and the offset are held at 1% and
+    0.03 px, below the port's own-scale-space figures of the same run."""
+    from cubesat_apds_tpu.ops.features import scale_space as jss
+    from cubesat_apds_tpu.ops.features.detect import (
+        det_hessian_response as jdet_hessian, detect_keypoints as jdetect)
+    from cubesat_apds_tpu_torch.ops.features import scale_space as tss
+    from cubesat_apds_tpu_torch.ops.features.detect import (
+        det_hessian_response, detect_keypoints)
+
+    img = _scene(np.random.default_rng(3), 256)
+    jcfg = JCFG.akaze
+
+    @jax.jit
+    def front(x):
+        ss = jss.build_scale_space(x, jcfg)
+        return ss.Lt, ss.Lsmooth, ss.kcontrast, jdetect(ss, jcfg, CAP)[0]
+
+    lt, ls, k, jit_kps = jax.device_get(front(jnp.asarray(img)))
+    meta = jss.evolution_metadata(jcfg)
+    eager_kps = jdetect(jss.ScaleSpace(
+        Lt=[jnp.asarray(a) for a in lt], Lsmooth=[jnp.asarray(a) for a in ls],
+        meta=meta, kcontrast=jnp.asarray(k)), jcfg, CAP)[0]
+    t_ss = tss.ScaleSpace(
+        Lt=[torch.from_numpy(np.array(a)) for a in lt],
+        Lsmooth=[torch.from_numpy(np.array(a)) for a in ls],
+        meta=tss.evolution_metadata(TCFG.akaze),
+        kcontrast=torch.from_numpy(np.array(k)))
+    t_kps = detect_keypoints(t_ss, TCFG.akaze, CAP)[0]
+
+    def fields(kp):
+        return {f: np.asarray(getattr(kp, f)) for f in (
+            "valid", "class_id", "xy", "response")}
+
+    t, e, j = fields(t_kps), fields(eager_kps), fields(jit_kps)
+    for f in t:
+        np.testing.assert_array_equal(t[f], e[f], err_msg=f)
+    for i, m in enumerate(meta):
+        got = det_hessian_response(torch.from_numpy(np.array(ls[i])),
+                                   m.sigma_size)[0].numpy()
+        ref = np.asarray(jdet_hessian(jnp.asarray(ls[i]), m.sigma_size)[0])
+        differ = got != ref
+        assert np.abs(got[differ]).max(initial=0.0) < 1e-37, i
+        assert not ref[differ].any(), i
+    nt, nj = int(t["valid"].sum()), int(j["valid"].sum())
+    d = np.abs(j["xy"][:nj, None] - t["xy"][None, :nt]).max(-1)
+    def twin_gap(kps):
+        """(count, share of jitted JAX keypoints with no twin in `kps` on
+        their level within 1e-3 px, largest offset to a twin)."""
+        n = int(kps["valid"].sum())
+        d = np.abs(j["xy"][:nj, None] - kps["xy"][None, :n]).max(-1)
+        level = j["class_id"][:nj, None] == kps["class_id"][None, :n]
+        near = np.where(level, d, np.inf).min(1)
+        return n, float((near > 1e-3).mean()), float(near.max())
+
+    own = fields(detect_keypoints(tss.build_scale_space(
+        torch.from_numpy(img), TCFG.akaze), TCFG.akaze, CAP)[0])
+    (_, lone, far), (n_own, lone_own, far_own) = twin_gap(t), twin_gap(own)
+    print(f"JAX jitted: {nj} keypoints. Port on JAX's scale space (= JAX op "
+          f"by op): {nt}, {lone:.4%} without a twin within 1e-3 px, largest "
+          f"offset {far:.4g} px. Port on its own: {n_own}, {lone_own:.4%}, "
+          f"{far_own:.4g} px")
+    assert nj > 300 and abs(nt - nj) <= max(1, 0.01 * nj)
+    assert lone <= 0.01 and far <= 0.03
+    assert lone < lone_own and far < far_own
 
 
 def test_tiled_extraction_small_image_is_one_call():

@@ -246,8 +246,8 @@ def test_store_level_calls_load_the_lod(scene, tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (the store, utils, stream, IO,
-    image, DB-build, accuracy and calibration modules among them) pulls in
-    no jax and nothing of cubesat_apds_tpu."""
+    image, DB-build, accuracy, calibration and command-line modules among
+    them) pulls in no jax and nothing of cubesat_apds_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import cubesat_apds_tpu_torch as p\n"
@@ -262,7 +262,8 @@ def test_port_imports_no_jax():
         "        'io', 'io.tiff', 'io.cog', 'io.mosaic', 'io.native',\n"
         "        'ops.warp', 'core.attitude', 'utils.synthetic',\n"
         "        'utils.accuracy', 'ops.geometry.calibration',\n"
-        "        'ops.geometry.chessboard', 'pipelines.calibrate'}\n"
+        "        'ops.geometry.chessboard', 'pipelines.calibrate',\n"
+        "        'cli', 'bench', 'utils.progress', 'utils.viz'}\n"
         "missing = {w for w in want if p.__name__ + '.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"
