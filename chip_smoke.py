@@ -19,7 +19,9 @@
    duplicated across the kernel's chunk edges, beside torch._int_mm of the
    same bits (the products alone), with its compiled tile shape, shared
    memory, blocks per SM and, where cuobjdump is at hand, its tensor-core
-   (IGMMA) instructions —
+   (IGMMA) instructions; and kernel 4 at the batch step's shape, Q =
+   16,384 (8 frames × 2,048) × M = 1,048,576 with ~5% invalid rows,
+   bit-exact, timed beside its twin with its bound —
    with median times of each kernel and its twin from CUDA events around
    back-to-back eager calls ("ms", what the main path pays per call), each
    kernel's and library call's device time from CUDA-graph replays
@@ -55,15 +57,19 @@
    loaded through open_store → load_device_db / load_pruned_device_db
    (rows equal to those written, ECEF world points); then 60 frames (a
    pool of 8 seeded shifted 512² uint8 frames, cycled) through
-   StreamingLocalizer: 10k at batch 1 and 8, 1M full DB at batch 8, 1M
-   pruned at batch 1 and 8. Every frame must recover its shift within
+   StreamingLocalizer: 10k at batch 1 and 8, 1M full DB at batch 8 and 4,
+   1M pruned at batch 1 and 8. The back half (match, RANSAC, PnP) runs
+   once a batch. Every frame must recover its shift within
    1 px, its features and matches must equal Localizer.localize's
    (localize_frame_pruned_jit's when pruned) on the same frame and DB, and
    its packed outputs too (or H within 0.01 px at the corners, equal ok
    flags and inlier Jaccard ≥ 0.95). Kernel A launches 15 times and
-   kernel B twice per batch, kernel 4 once per frame on the full 1M DB.
+   kernel B twice per batch, kernel 4 once per batch at Q = B × 2,048 on
+   the full 1M DB. A batch's back half at batch 8 launches at most 1.25x
+   the device kernels it launches at batch 1 (10k and pruned).
    Prints frames/s, ms per frame, latency p50/p95, the stage times,
-   fallback frames and launches per batch of each run. Up to `prefetch`
+   fallback frames, launches per batch, the device kernels of a batch's
+   back half and of a step (per frame) of each run. Up to `prefetch`
    frames' steps are queued before a result is fetched.
 7. Build phase (the offline DB build, slice 4): from seed 42 an 8192²
    image (bench_feature_extraction.py's synth_satellite terrain with
@@ -98,8 +104,9 @@
    capacity 4096; CUDA events around a synchronised loop).
 10. Part A: detect_and_compute_batch under
    torch.cuda.set_sync_debug_mode("error") on the 512² frame and a build
-   batch of 8 tiles of 256²; one main-path step under "warn", its
-   synchronising calls listed by file:line; the per-keypoint stages'
+   batch of 8 tiles of 256²; one main-path step and one stream batch of 8
+   (its step and its fetch) under "warn", their synchronising calls listed
+   by file:line; the per-keypoint stages'
    device time at full capacity against the live prefix (bit-equal).
 11. Accuracy phase (the mission metric, slice 5): utils/accuracy.run on
    the rects and natural textures (seed 2026, a 1024² mosaic at 1 m GSD,
@@ -132,13 +139,16 @@
    over the whole DB, ms per call and the merge's share; the dense maker
    on 10,240 rows against ops.match.knn2; the tp = 4 call under
    set_sync_debug_mode("error"). (b) make_batch_localizer at dp 2 × tp 2
-   on the stream's 8 pool frames against the big DB: every frame's packed
-   outputs bit-equal to the lone step's; launches of A, B and 4 per batch
+   on the stream's 8 pool frames against the big DB (a dp row's geometry
+   as one batch): each row's packed outputs bit-equal to the
+   single-device batch step on its 4 frames, every frame agreeing with
+   the lone step as a stream frame must; launches of A, B and 4 per batch
    (30, 4, 4); frames/s. (c) StreamingLocalizer(mesh=dp 2 × tp 2) over
    the stream phase's 1M binary store at batch 8: every frame equal to the
-   batch-8 stream's without a mesh; frames/s, latency p50/p95 in s and in
-   steps. (d) preprocess(mesh=dp 2) on a 2048² crop of the build image,
-   amount_lod 3: the store equal to the single-device build bit for bit.
+   single-device stream's at batch 4 (a dp row); frames/s, latency
+   p50/p95 in s and in steps. (d) preprocess(mesh=dp 2) on a 2048² crop
+   of the build image, amount_lod 3: the store equal to the single-device
+   build bit for bit.
    (e) two child processes share the card over gloo, two slots each, one
    global mesh of four: the sharded kNN-2 (dp 1 × tp 4) and the serve
    step (dp 2 × tp 2, 4 frames) give each the single-process results; a
@@ -610,6 +620,64 @@ def knn_phase(torch, dev, Q=2048, m_main=BIG_DB_ROWS, m_rag=1_000_003):
             "max_abs_err": err, "ms": ms, "device_ms": dms, "plain_ms": pms,
             "bound_ms": bound, "bound_by": "operations", "library_ms": None,
             "popc_bound_ms": popc_bound, "int8_product_ms": mm_ms}
+
+
+def knn_batch_phase(torch, dev, Q=STREAM_BATCH * 2048, m=BIG_DB_ROWS):
+    """Kernel 4 at the batch step's shape: a batch of 8 frames' 8 × 2,048
+    queries against 1,048,576 rows (~5% invalid) in one launch, as the
+    batched back half runs it, bit-exact on d0, d1 and i0 against its twin
+    (knn2_blockwise, 64k-row blocks); eager and device ms beside the
+    twin's, and the bound 2·Q·M·512 int8 ops at the tensor-core peak."""
+    from cubesat_apds_tpu_torch.ops import match as tmatch
+    from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    block = 65536
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rand_bytes(n):
+        return torch.randint(0, 256, (n, 61), generator=gen, device=dev,
+                             dtype=torch.uint8)
+
+    q = rand_bytes(Q)
+    db = rand_bytes(m)
+    rows = torch.randint(0, m, (Q // 2,), generator=gen, device=dev)
+    db[rows] = q[:Q // 2] ^ (rand_bytes(Q // 2) & rand_bytes(Q // 2)
+                             & rand_bytes(Q // 2))
+    valid = torch.rand(m, generator=gen, device=dev) >= 0.05
+    layout = tmk.layout_db_blocks(tmk.pack_words(db), valid)
+    qw = tmk.pack_words(q)
+    qb = tmatch.unpack_bits(q)
+    nqb, n_split, chunk = tmk.split_plan(Q, m, sms)
+    got = tmk.knn2_hamming_cuda(qw, *layout)
+    ref = tmatch.knn2_blockwise(qb, db, block, valid)
+    torch.cuda.synchronize()
+    exact = [torch.equal(g, r) for g, r in zip(got, ref)]
+    err = max(float((got[0] - ref[0]).abs().max()),
+              float((got[1] - ref[1]).abs().max()))
+    log(f"kernel 4 at the batch step's shape Q={Q} (batch {STREAM_BATCH} x "
+        f"{Q // STREAM_BATCH}) x M={m}, ~5% invalid: split plan {nqb} query "
+        f"blocks x "
+        f"{n_split} chunks of {chunk} rows; d0/d1/i0 bit_exact={exact} "
+        f"max_abs_err={err:.3e}")
+    check(all(exact), f"kernel 4 at Q={Q} x M={m} bit-exact on d0, d1, i0")
+    check(bool((valid[got[2].long()] | (got[0] > 1e30)).all()),
+          f"kernel 4 at Q={Q}: winners are valid rows")
+    del ref
+    ms = cuda_ms(torch, lambda: tmk.knn2_hamming_cuda(qw, *layout),
+                 reps=3, rounds=5)
+    dms = graph_ms(torch, lambda: tmk.knn2_hamming_cuda(qw, *layout),
+                   reps=3, rounds=5)
+    pms = cuda_ms(torch, lambda: tmatch.knn2_blockwise(qb, db, block, valid),
+                  reps=1, rounds=2)
+    ops = 2 * Q * m * 512
+    nbytes = m * (64 + 4) + Q * 64 + Q * 12
+    bound = max(ops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    log(f"  Q={Q} x M={m}: kernel={ms:.4f} ms (device {dms:.4f}) "
+        f"plain={pms:.4f} ms; bound {bound:.4f} ms (int8 tensor-core ops; "
+        f"bytes alone {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return {"Q": Q, "M": m, "ms": ms, "device_ms": dms, "plain_ms": pms,
+            "bound_ms": bound, "max_abs_err": err, "library_ms": None}
 
 
 def int8_product_ms(torch, q_bits, db_packed, block):
@@ -1095,8 +1163,12 @@ def _agree(torch, packed, ref_packed, got, ref):
 def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     """One timed stream of `frames` through a fresh StreamingLocalizer,
     with the launch counters zeroed just before and read just after, the
-    back half's per-frame features and results recorded (device tensors,
-    no copies), then every frame checked against its reference."""
+    back half's features and results recorded row by row (device
+    tensors, no copies), then every frame checked against its reference;
+    then the device kernels of one batch's back half and of one step,
+    counted under torch.profiler."""
+    from cubesat_apds_tpu_torch.core.types import select
+    from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
     from cubesat_apds_tpu_torch.pipelines import stream as stream_mod
 
     s = make_stream()
@@ -1110,11 +1182,24 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     orig = getattr(stream_mod, name)
 
     def recorded(feats, *a, **k):
+        # One call per batch: its rows, frame by frame, in stream order.
         out = orig(feats, *a, **k)
-        record.append((feats, out.result if kind == "pruned" else out))
+        res = out.result if kind == "pruned" else out
+        record.extend((select(feats, i), select(res, i))
+                      for i in range(feats.descriptors.shape[0]))
         return out
 
+    # The queries of each big-DB match (knn2_fused launches kernel 4 once
+    # a call on the card).
+    knn_q = []
+    knn_orig = tmk.knn2_fused
+
+    def knn_recorded(q_words, *a, **k):
+        knn_q.append(q_words.shape[0])
+        return knn_orig(q_words, *a, **k)
+
     setattr(stream_mod, name, recorded)
+    tmk.knn2_fused = knn_recorded
     try:
         _reset_launches()
         t0 = time.perf_counter()
@@ -1124,6 +1209,7 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
         launches = _read_launches()
     finally:
         setattr(stream_mod, name, orig)
+        tmk.knn2_fused = knn_orig
     steps = -(-len(frames) // b)
     check([r.frame_id for r in results] == list(range(len(frames))),
           f"{label}: {len(frames)} frames back, in order")
@@ -1133,10 +1219,16 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
           f"{b} ({launches['fed_cycle']} and {launches['sample_patches']} "
           f"for {steps} batches, {s.fallback_frames} fallback frames)")
     if kind == "full1M":
-        check(launches["knn2_hamming"] == steps * b + s.fallback_frames,
-              f"{label}: one kNN-2 launch per frame served "
-              f"({launches['knn2_hamming']} for {steps} x {b} rows)")
-    bad = []
+        # The batched back half matches a batch's B·capacity queries in
+        # ONE kernel-4 launch, as the JAX package's single knn2_fused call
+        # under vmap (a fallback frame adds its own).
+        cap = s.config.akaze.capacity
+        check(launches["knn2_hamming"] == steps + s.fallback_frames
+              and knn_q[:steps] == [b * cap] * steps,
+              f"{label}: one kNN-2 launch per batch at Q = {b} x {cap} = "
+              f"{b * cap} ({launches['knn2_hamming']} launches for {steps} "
+              f"batches, Q {sorted(set(knn_q))})")
+    bad, near = [], {}
     for i, r in enumerate(results):
         dx, dy = shifts[i % len(shifts)]
         H = r.homography
@@ -1165,31 +1257,85 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
             bad.append(f"frame {i}: features equal {same_feats}, matches "
                        f"equal {same_matches}, packed agrees {agree} {why}")
         elif why:
-            log(f"  {label} frame {i}: packed differs in {why}, within the "
-                f"stated tolerance")
+            near[i] = why
+    if near:
+        fields = sorted({int(f) for w in near.values()
+                         for f in w[len("fields ["):-1].split(", ")})
+        log(f"  {label}: {len(results) - len(near)} frames' packed outputs "
+            f"equal their reference's bit for bit, {len(near)} differ within "
+            f"the stated tolerance (fields {fields})")
     lat = sorted(r.latency_s for r in results)
     fps = len(results) / wall
+    p50, p95 = lat[len(lat) // 2], lat[int(0.95 * len(lat)) - 1]
+    back, step_k, busy = batch_kernels(torch, s, frames[:b], kind)
+    idle = 1.0 - busy / (wall / steps * 1e3)
     log(f"{label}: {len(results)} frames in {wall:.3f} s = {fps:.2f} "
         f"frames/s, {wall / len(results) * 1e3:.2f} ms per frame; latency "
-        f"p50 {lat[len(lat) // 2] * 1e3:.2f} ms, p95 "
-        f"{lat[int(0.95 * len(lat)) - 1] * 1e3:.2f} ms; fallback_frames "
+        f"p50 {p50 * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms; fallback_frames "
         f"{s.fallback_frames}; launches per batch: "
-        f"{ {k: v / steps for k, v in launches.items()} }")
+        f"{ {k: v / steps for k, v in launches.items()} }; device kernels: "
+        f"{back} in a batch's back half, {step_k} in a step = "
+        f"{step_k / b:.1f} a frame; a step's device-busy {busy:.3f} ms of "
+        f"{wall / steps * 1e3:.2f} ms a step in the stream (idle share "
+        f"{idle:.4f})")
     log("\n".join("    " + ln for ln in s.times.report().splitlines()))
     check(not bad, f"{label}: every frame recovers its shift within 1 px "
           f"and agrees with its reference" + ("" if not bad else
                                               ": " + "; ".join(bad[:5])))
     return {"frames_per_s": fps, "ms_per_frame": wall / len(results) * 1e3,
+            "p50_s": p50, "p95_s": p95,
             "launches_per_batch": {k: v / steps for k, v in launches.items()},
+            "back_half_kernels_per_batch": back,
+            "kernels_per_frame": step_k / b, "idle_share": idle,
             "fallback_frames": s.fallback_frames, "results": results}
+
+
+def device_kernels(torch, fn):
+    """(device events — kernels, copies, fills — and their summed ms) of
+    one warmed call of `fn` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def batch_kernels(torch, s, frames, kind):
+    """(device kernels of a batch's back half, of the whole step, the
+    step's device-busy ms) for the stream `s` on one batch of `frames`."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        detect_and_compute_batch)
+    from cubesat_apds_tpu_torch.pipelines import stream as stream_mod
+
+    x = torch.stack([torch.from_numpy(f) for f in frames]).to(s.device)
+    feats = detect_and_compute_batch(stream_mod._as_float(x),
+                                     s.config.akaze)
+    if kind == "pruned":
+        def back():
+            return stream_mod._pruned_back_half(
+                feats, tuple(x.shape[1:]), s.db, s.camera, s.config,
+                s.solve_pose, stream_mod._MARGIN)
+    else:
+        def back():
+            return stream_mod.localize_from_features(
+                feats, s.db, s.camera, s.config, s.solve_pose)
+    return (device_kernels(torch, back)[0],
+            *device_kernels(torch, lambda: s._step(x)))
 
 
 def stream_phase(torch, dev, profile_dir):
     """bench_stream.py's scene from stores on disk: 60 frames (a pool of 8
     seeded shifted 512² uint8 frames, cycled; capacity 2048) through
     StreamingLocalizer from the 10k npz store at batch 1 and 8, the
-    1,048,576-row binary store at batch 8 (full DB, kernel 4 per frame)
-    and pruned at batch 1 and 8."""
+    1,048,576-row binary store at batch 8 and 4 (full DB, kernel 4 once a
+    batch; batch 4 is the mesh stream's row) and pruned at batch 1 and 8.
+    A batch's back-half device kernels at batch 8 must stay within 1.25x
+    those at batch 1."""
     import tempfile
 
     from cubesat_apds_tpu_torch.bench import make_frame
@@ -1261,9 +1407,11 @@ def stream_phase(torch, dev, profile_dir):
             f"median {np.median(secs[1:]) * 1e3:.2f} ms per frame")
         return refs
 
+    half = STREAM_BATCH // 2
     runs = [("10k store, batch 1", db10, 1, "full"),
             ("10k store, batch 8", db10, STREAM_BATCH, "full"),
             ("1M store, full DB, batch 8", dbbig, STREAM_BATCH, "full1M"),
+            (f"1M store, full DB, batch {half}", dbbig, half, "full1M"),
             ("1M store, pruned, batch 1", pdb, 1, "pruned"),
             ("1M store, pruned, batch 8", pdb, STREAM_BATCH, "pruned")]
     refs = {}
@@ -1282,9 +1430,18 @@ def stream_phase(torch, dev, profile_dir):
             s._step(x)                                      # warm-up
             profile_step(torch, lambda: s._step(x), profile_dir,
                          f"stream_b{b}", frames_per_step=b)
+    # The back half runs once a batch: its launches must not grow with B.
+    for b1, b8 in (("10k store, batch 1", "10k store, batch 8"),
+                   ("1M store, pruned, batch 1", "1M store, pruned, batch 8")):
+        k1 = out[b1]["back_half_kernels_per_batch"]
+        k8 = out[b8]["back_half_kernels_per_batch"]
+        check(k8 <= 1.25 * k1, f"a batch's back half: {k8} device kernels "
+              f"at batch {STREAM_BATCH} against {k1} at batch 1 "
+              f"({k8 / k1:.3f}x, at most 1.25x) — {b8.split(',')[0]}")
     ctx = {"db1m": dbbig, "frames": frames, "shifts": shifts, "pool": pool,
            "camera": camera,
-           "b8_results": out["1M store, full DB, batch 8"].pop("results")}
+           "row_results": out[f"1M store, full DB, batch {half}"].pop(
+               "results")}
     for r in out.values():
         r.pop("results", None)
     return out, ctx
@@ -1312,9 +1469,10 @@ def device_busy_ms(torch, fn, reps=3):
 def sync_phase(torch, dev, loc, frame_t, image):
     """detect_and_compute_batch, warmed, under set_sync_debug_mode("error")
     on the 512² main-path frame and on a build batch of 8 tiles of 256²;
-    one warmed main-path step under "warn", its synchronising calls listed
-    by file:line; and the per-keypoint stages' device time at full
-    capacity against the live prefix (bit-equal)."""
+    one warmed main-path step and one stream batch of 8 (its step and its
+    fetch) under "warn", their synchronising calls listed by file:line;
+    and the per-keypoint stages' device time at full capacity against the
+    live prefix (bit-equal)."""
     import collections
     import os
     import warnings
@@ -1322,6 +1480,7 @@ def sync_phase(torch, dev, loc, frame_t, image):
     from cubesat_apds_tpu_torch.core.config import PipelineConfig
     from cubesat_apds_tpu_torch.ops.features.akaze import (
         _front_end, detect_and_compute_batch, orient_describe)
+    from cubesat_apds_tpu_torch.pipelines.stream import StreamingLocalizer
 
     frame = frame_t.to(dev)[None]
     tiles = torch.from_numpy(np.stack(
@@ -1343,26 +1502,41 @@ def sync_phase(torch, dev, loc, frame_t, image):
         check(True, f"detect_and_compute_batch ({label}) ran under "
               "set_sync_debug_mode('error') without a synchronising call")
 
-    loc.localize(frame_t)
-    torch.cuda.synchronize()
     root = os.path.dirname(os.path.abspath(__file__))
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            loc.localize(frame_t)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
-        if "called a synchronizing" in str(w.message))
-    log(f"main-path step under set_sync_debug_mode('warn'): "
-        f"{sum(sites.values())} synchronising calls at {len(sites)} sites:")
-    for site, n in sorted(sites.items()):
-        log(f"  {site}: {n}")
-    check(not any("ops/features" in k or "ops/kernels" in k for k in sites),
-          "no synchronising call in the feature step or the kernel wrappers")
+
+    def sync_sites(fn, label):
+        fn()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        found = collections.Counter(
+            f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+            if "called a synchronizing" in str(w.message))
+        log(f"{label} under set_sync_debug_mode('warn'): "
+            f"{sum(found.values())} synchronising calls at {len(found)} "
+            f"sites:")
+        for site, n in sorted(found.items()):
+            log(f"  {site}: {n}")
+        check(not any("ops/features" in k or "ops/kernels" in k
+                      for k in found),
+              f"{label}: no synchronising call in the feature step or the "
+              f"kernel wrappers")
+        return found
+
+    sites = sync_sites(lambda: loc.localize(frame_t), "main-path step")
+    # A stream batch of 8 (the step and its one fetch of the packed rows).
+    stream = StreamingLocalizer(loc.db, loc.camera, serving_config(),
+                                batch=STREAM_BATCH, device=dev)
+    x = torch.stack([torch.roll(frame_t, (k, 2 * k), (0, 1))
+                     for k in range(STREAM_BATCH)]).to(dev)
+    batch_sites = sync_sites(lambda: stream._step(x).cpu(),
+                             f"stream batch of {STREAM_BATCH} (10k DB)")
 
     stages = {}
     for label, x, akaze in cases:
@@ -1383,7 +1557,8 @@ def sync_phase(torch, dev, loc, frame_t, image):
             f"the live prefix of {n_live} ({full_ms / pre_ms:.2f}x)")
         stages[label] = {"capacity_ms": full_ms, "prefix_ms": pre_ms,
                          "live": n_live, "capacity": cap}
-    return {"sync_sites": dict(sites), "per_keypoint_stages": stages}
+    return {"sync_sites": dict(sites), "batch_sync_sites": dict(batch_sites),
+            "per_keypoint_stages": stages}
 
 
 # ---- slice 4: a feature DB built on the card --------------------------------
@@ -2252,14 +2427,6 @@ def calibration_phase(torch, dev, card):
 MESH_CHILD_TIMEOUT_S = 300
 
 
-def _packed(torch, homog, pose, n_match, n_kp, b):
-    from cubesat_apds_tpu_torch.core.types import select
-    from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
-
-    return _pack_outputs(select(homog, b), n_match[b], n_kp[b],
-                         None if pose is None else select(pose, b))
-
-
 def mesh_knn(torch, dev, db, q_desc):
     """(a): the big DB's 1,048,576 rows and a ragged 1,000,003-row cut of
     it (~5% invalid, padded with invalid rows to a tp multiple) against
@@ -2337,11 +2504,19 @@ def mesh_knn(torch, dev, db, q_desc):
 
 def mesh_serve(torch, dev, loc, pool, config):
     """(b): make_batch_localizer at dp = 2 × tp = 2 on the 8 pool frames
-    against the big DB: each frame's packed outputs bit-equal to the lone
-    Localizer step's; launches of A, B and 4 per batch; frames/s."""
+    against the big DB: each dp row's packed outputs bit-equal to the
+    single-device batch step on that row's 4 frames (the same batched back
+    half), and each frame agreeing with the lone Localizer step as a
+    stream frame must (`_agree`); launches of A, B and 4 per batch;
+    frames/s."""
+    from cubesat_apds_tpu_torch.core.types import select
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        detect_and_compute_batch)
     from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
     from cubesat_apds_tpu_torch.parallel.serve import (
         make_batch_localizer, shard_device_db)
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        localize_from_features)
     from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
 
     mesh = make_mesh(dp=2, tp=2, devices=[dev] * 4)
@@ -2361,15 +2536,27 @@ def mesh_serve(torch, dev, loc, pool, config):
                        "knn2_hamming": 4},
           "serve step: kernel A 15 and B 2 per dp row, kernel 4 once per "
           "shard per row")
-    same = []
-    for b in range(len(pool)):
-        r = loc.localize(frames[b])
-        want = _pack_outputs(r.homography, r.num_matches, r.num_keypoints,
-                             r.pose)
-        same.append(torch.equal(_packed(torch, homog, pose, n_match, n_kp,
-                                        b), want))
-    check(all(same), f"serve step: every frame's packed outputs bit-equal "
-          f"to the lone step's ({sum(same)} of {len(same)})")
+    got = _pack_outputs(homog, n_match, n_kp, pose)
+    lb = len(pool) // 2
+    same, agree = [], []
+    for i in range(2):
+        row = localize_from_features(detect_and_compute_batch(
+            frames[i * lb:(i + 1) * lb], config.akaze), loc.db, loc.camera,
+            config, True)
+        want = _pack_outputs(row.homography, row.num_matches,
+                             row.num_keypoints, row.pose)
+        same.append(torch.equal(got[i * lb:(i + 1) * lb], want))
+        for j in range(lb):
+            r = loc.localize(frames[i * lb + j])
+            lone = _pack_outputs(r.homography, r.num_matches,
+                                 r.num_keypoints, r.pose)
+            agree.append(_agree(torch, got[i * lb + j].cpu().numpy(),
+                                lone.cpu().numpy(), select(row, j), r)[0])
+    check(all(same), f"serve step: each dp row's packed outputs bit-equal "
+          f"to the single-device batch step on its {lb} frames "
+          f"({sum(same)} of {len(same)} rows)")
+    check(all(agree), f"serve step: every frame agrees with the lone step "
+          f"({sum(agree)} of {len(agree)})")
     secs = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2386,7 +2573,8 @@ def mesh_serve(torch, dev, loc, pool, config):
 def mesh_stream(torch, dev, ctx, config):
     """(c): StreamingLocalizer(mesh=dp 2 × tp 2) over the stream phase's
     1M binary store at batch 8: every frame's packed outputs equal the
-    batch-8 stream's without a mesh; frames/s, latency p50/p95."""
+    single-device stream's at the batch of one dp row (4: the same frames
+    through the same batched back half); frames/s, latency p50/p95."""
     from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
     from cubesat_apds_tpu_torch.pipelines.stream import StreamingLocalizer
 
@@ -2419,9 +2607,10 @@ def mesh_stream(torch, dev, ctx, config):
           f"mesh stream: kernel A 30, B 4 and kernel 4 4 launches a batch "
           f"({launches} for {steps} batches)")
     same = [np.array_equal(packed(r), packed(w))
-            for r, w in zip(results, ctx["b8_results"])]
-    check(all(same), f"mesh stream: every frame equals the batch-8 stream's "
-          f"without a mesh ({sum(same)} of {len(same)})")
+            for r, w in zip(results, ctx["row_results"])]
+    check(all(same), f"mesh stream: every frame equals the single-device "
+          f"stream's at batch {b // 2}, a dp row ({sum(same)} of "
+          f"{len(same)})")
     lat = sorted(r.latency_s for r in results)
     step_s = wall / steps
     p50, p95 = lat[len(lat) // 2], lat[int(0.95 * len(lat)) - 1]
@@ -2526,6 +2715,7 @@ def mesh_two_process_outputs(torch, dev, db, frame_t, config, slots):
         make_batch_localizer, shard_device_db)
     from cubesat_apds_tpu_torch.parallel.sharded_match import (
         make_sharded_knn2_fused)
+    from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
 
     q = detect_and_compute(frame_t.to(dev), config.akaze).descriptors
     fn = make_sharded_knn2_fused(make_mesh(dp=1, tp=4, devices=slots),
@@ -2540,8 +2730,7 @@ def mesh_two_process_outputs(torch, dev, db, frame_t, config, slots):
                           for k in range(4)]).to(dev)
     homog, pose, n_match, n_kp = step(
         frames, shard_device_db(mesh, db, match_config=config.match))
-    packed = torch.stack([_packed(torch, homog, pose, n_match, n_kp, b)
-                          for b in range(4)])
+    packed = _pack_outputs(homog, n_match, n_kp, pose)
     return {"d0": d0.cpu().numpy(), "d1": d1.cpu().numpy(),
             "i0": i0.cpu().numpy(), "packed": packed.cpu().numpy()}
 
@@ -3393,6 +3582,7 @@ def main(argv=None):
         log(f"terrain and build image {MOSAIC_N}² from seed {SEED} in "
             f"{time.perf_counter() - t0:.1f} s")
         kernels = kernel_phase(torch, dev) + [knn_phase(torch, dev)]
+        kernels[-1]["batch_step_shape"] = knn_batch_phase(torch, dev)
         a_batch_ms, b_batch_ms = batch_kernel_phase(torch, dev)
         build_kernels = build_kernel_phase(torch, dev)
         launches, step_s, loc10k, frame_t = slice_phase(torch, dev,
@@ -3431,6 +3621,9 @@ def main(argv=None):
             k["stream_launches_per_batch"] = {
                 label: r["launches_per_batch"][name]
                 for label, r in streams.items()}
+            k["stream_back_half_kernels_per_batch"] = {
+                label: r["back_half_kernels_per_batch"]
+                for label, r in streams.items()}
             k["build_launches_per_batch"] = db_build["launches_per_batch"][name]
             k["serve_check_launches"] = serve["launches"][name]
             k["tiled_8192_launches"] = tiled["launches"][name]
@@ -3464,8 +3657,15 @@ def main(argv=None):
         log(f"card: {card} — slice {1.0 / step_s:.2f} frames/s, big DB "
             f"{1.0 / big_s:.2f} frames/s, pruned {1.0 / pruned_s:.2f} "
             f"frames/s; streams: " + ", ".join(
-                f"{label} {r['frames_per_s']:.2f} frames/s"
+                f"{label} {r['frames_per_s']:.2f} frames/s (p50 "
+                f"{r['p50_s']:.3f} s, p95 {r['p95_s']:.3f} s; "
+                f"{r['kernels_per_frame']:.1f} kernels a frame, "
+                f"{r['back_half_kernels_per_batch']} in a batch's back half, "
+                f"idle {r['idle_share']:.3f})"
                 for label, r in streams.items()))
+        log(f"card: {card} — syncs: main-path step "
+            f"{sum(part_a['sync_sites'].values())}, stream batch of "
+            f"{STREAM_BATCH} {sum(part_a['batch_sync_sites'].values())}")
         log(f"card: {card} — build {db_build['seconds']:.2f} s "
             f"({db_build['tiles_per_s']:.2f} tiles/s), serve check LoD "
             f"{serve['lod']} corner error {serve['corner_err_px']:.3f} px, "

@@ -3,13 +3,19 @@
 Everything downstream of detection is fixed capacity + validity mask, as
 in the JAX package, so the port's outputs line up with the reference's
 array for array. The containers are plain dataclasses of tensors;
-``to_device`` moves any of them (nested included) to another device, and
-``select`` takes one item of a batched one.
+``to_device`` moves any of them (nested included) to another device,
+``select`` takes one item of a batched one, ``fold_lead`` /
+``unfold_lead`` fold leading (batch) dimensions into one and back, and
+``take_rows`` and ``pick`` gather rows batch by batch. Every container
+may carry leading batch dimensions: the back half (match, homography, pose) runs a
+whole batch of frames as one pass, and a lone frame is the case with no
+leading dimension.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -60,6 +66,38 @@ def select(obj, index):
     """Item `index` of the leading (batch) axis of every tensor of a tensor
     dataclass: one image's Features of a batch's."""
     return _map_tensors(obj, lambda t: t[index])
+
+
+def fold_lead(obj, n: int):
+    """The first `n` dimensions of every tensor of `obj` folded into one
+    (n = 0 adds a leading dimension of 1)."""
+    return _map_tensors(obj, lambda t: t.reshape(
+        (math.prod(t.shape[:n]),) + t.shape[n:]))
+
+
+def unfold_lead(obj, lead):
+    """The inverse of `fold_lead`: the first dimension of every tensor of
+    `obj` unfolded into the shape `lead` (() drops it)."""
+    return _map_tensors(obj, lambda t: t.reshape(tuple(lead) + t.shape[1:]))
+
+
+def pick(x, idx):
+    """x [B, C, ...] at idx [B] → [B, ...]: each batch row's choice (a
+    RANSAC winner) among its C candidates."""
+    i = idx.reshape(idx.shape + (1,) * (x.dim() - 1))
+    return torch.take_along_dim(x, i, dim=1)[:, 0]
+
+
+def take_rows(table, idx):
+    """Rows of `table` at `idx`, batch by batch: table [B, M, ...], idx
+    [B, ...] integer → [B, *idx.shape[1:], ...] (row idx[b, ...] of
+    table[b])."""
+    b = idx.shape[0]
+    flat = idx.reshape(b, -1).long()
+    trail = table.shape[2:]
+    out = torch.take_along_dim(
+        table, flat.reshape(flat.shape + (1,) * len(trail)), dim=1)
+    return out.reshape(idx.shape + trail)
 
 
 @dataclasses.dataclass

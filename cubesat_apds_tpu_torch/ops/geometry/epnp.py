@@ -2,7 +2,8 @@
 ops/geometry/epnp.py; Lepetit, Moreno-Noguer, Fua, IJCV 2009).
 
 Every function batches over leading dimensions, so the RANSAC caller
-solves all hypotheses in one call instead of a vmap.
+solves all hypotheses of all frames of a batch in one call instead of a
+vmap.
 """
 
 from __future__ import annotations
@@ -10,15 +11,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cubesat_apds_tpu_torch.core.types import device_const
 from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
-    cholesky_solve, det3x3, eigh3x3, eigh_smallest, lstsq_normal,
+    bmm, cholesky_solve, det3x3, eigh3x3, eigh_smallest, lstsq_normal,
     polar_rotation)
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import matrix_to_rodrigues
 
 # Control-point distance constraint index pairs (6 pairs of 4 points).
 _PAIRS = np.array([(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)])
-_P0 = list(_PAIRS[:, 0])
-_P1 = list(_PAIRS[:, 1])
+
+
+def _pair_index(x, dim: int):
+    """x's slices at the pairs' first and second points along `dim`, the
+    index tensors uploaded once per device."""
+    p0 = device_const(_PAIRS[:, 0], torch.long, x.device)
+    p1 = device_const(_PAIRS[:, 1], torch.long, x.device)
+    return x.index_select(dim, p0), x.index_select(dim, p1)
 
 
 def _mT(x):
@@ -30,7 +38,7 @@ def _control_points(obj, w):
     wsum = w.sum(-1).clamp(min=1e-12)
     c0 = (obj * w[..., None]).sum(-2) / wsum[..., None]
     centered = (obj - c0[..., None, :]) * w[..., None]
-    cov = _mT(centered) @ centered / wsum[..., None, None]
+    cov = bmm(_mT(centered), centered) / wsum[..., None, None]
     eigval, eigvec = eigh3x3(cov)
     # Axes floored RELATIVE to the largest, so planar point sets keep a
     # non-singular barycentric system.
@@ -48,10 +56,10 @@ def _barycentric(obj, cw):
     onesn = torch.ones(obj.shape[:-2] + (1, obj.shape[-2]), dtype=obj.dtype,
                        device=obj.device)
     b = torch.cat([_mT(obj), onesn], dim=-2)                         # [..., 4, n]
-    AtA = _mT(A) @ A
+    AtA = bmm(_mT(A), A)
     damp = 1e-9 * torch.diagonal(AtA, dim1=-2, dim2=-1).sum(-1)
     eye = torch.eye(4, dtype=AtA.dtype, device=AtA.device)
-    alpha = cholesky_solve(AtA + damp[..., None, None] * eye, _mT(A) @ b)
+    alpha = cholesky_solve(AtA + damp[..., None, None] * eye, bmm(_mT(A), b))
     return _mT(alpha)
 
 
@@ -71,7 +79,8 @@ def _build_M(alpha, uv_n, w):
 
 def _pair_diffs(pts4):
     """[..., 4, 3] → [..., 6, 3] control-point differences over _PAIRS."""
-    return pts4[..., _P0, :] - pts4[..., _P1, :]
+    a, b = _pair_index(pts4, -2)
+    return a - b
 
 
 def _procrustes(src, dst, w, fast: bool = False):
@@ -80,8 +89,8 @@ def _procrustes(src, dst, w, fast: bool = False):
     wsum = w.sum(-1).clamp(min=1e-12)[..., None]
     mu_s = (src * w[..., None]).sum(-2) / wsum
     mu_d = (dst * w[..., None]).sum(-2) / wsum
-    S = _mT((dst - mu_d[..., None, :]) * w[..., None]) \
-        @ (src - mu_s[..., None, :])
+    S = bmm(_mT((dst - mu_d[..., None, :]) * w[..., None]),
+            src - mu_s[..., None, :])
     if fast:
         R = polar_rotation(S)
     else:
@@ -90,11 +99,11 @@ def _procrustes(src, dst, w, fast: bool = False):
         finite = torch.isfinite(S).flatten(-2).all(-1)[..., None, None]
         eye = torch.eye(3, dtype=S.dtype, device=S.device)
         U, _, Vt = torch.linalg.svd(torch.where(finite, S, eye))
-        d = torch.sign(det3x3(U @ Vt))
+        d = torch.sign(det3x3(bmm(U, Vt)))
         one = torch.ones_like(d)
         D = torch.diag_embed(torch.stack([one, one, d], dim=-1))
-        R = torch.where(finite, U @ D @ Vt, torch.nan)
-    t = mu_d - (R @ mu_s[..., None])[..., 0]
+        R = torch.where(finite, bmm(bmm(U, D), Vt), torch.nan)
+    t = mu_d - bmm(R, mu_s[..., None])[..., 0]
     return R, t
 
 
@@ -103,14 +112,15 @@ def _gauss_newton_betas(betas, vmat, rho, iters: int = 5):
     The residual is quadratic in β, so its Jacobian is 2·dᵀ·D with d the
     control-point differences and D their (linear) map from β."""
     V4 = vmat.reshape(vmat.shape[:-2] + (4, 3, 4))   # [..., point, coord, β]
-    D = V4[..., _P0, :, :] - V4[..., _P1, :, :]       # [..., 6, 3, 4]
+    D0, D1 = _pair_index(V4, -3)
+    D = D0 - D1                                       # [..., 6, 3, 4]
     for _ in range(iters):
-        x = (vmat @ betas[..., None])[..., 0]
+        x = bmm(vmat, betas[..., None])[..., 0]
         d = _pair_diffs(x.reshape(x.shape[:-1] + (4, 3)))        # [..., 6, 3]
         r = (d * d).sum(-1) - rho
         J = (2.0 * d[..., None] * D).sum(-2)                     # [..., 6, 4]
-        delta = cholesky_solve(_mT(J) @ J, (_mT(J) @ r[..., None])[..., 0],
-                               damp=1e-9)
+        delta = cholesky_solve(bmm(_mT(J), J),
+                               bmm(_mT(J), r[..., None])[..., 0], damp=1e-9)
         betas = betas - delta
     return betas
 
@@ -129,7 +139,7 @@ def epnp(obj_points, img_points_normalized, weights=None,
     cw = _control_points(obj, w)
     alpha = _barycentric(obj, cw)
     M = _build_M(alpha, uv, w)
-    V = eigh_smallest(_mT(M) @ M, 4)                          # [..., 12, 4]
+    V = eigh_smallest(bmm(_mT(M), M), 4)                      # [..., 12, 4]
     rho = torch.sqrt((_pair_diffs(cw) ** 2).sum(-1).clamp(min=1e-18)) ** 2
 
     def dv(i, j):
@@ -164,15 +174,15 @@ def epnp(obj_points, img_points_normalized, weights=None,
     cases = torch.stack([case1, case2, case3], dim=-2)         # [..., 3, 4]
     Vc = V[..., None, :, :]
     betas = _gauss_newton_betas(cases, Vc, rho[..., None, :])
-    x = (Vc @ betas[..., None])[..., 0]
-    cam = alpha[..., None, :, :] @ x.reshape(x.shape[:-1] + (4, 3))
+    x = bmm(Vc, betas[..., None])[..., 0]
+    cam = bmm(alpha[..., None, :, :], x.reshape(x.shape[:-1] + (4, 3)))
     wc = w[..., None, :]
     depth_sign = torch.sign((cam[..., 2] * wc).sum(-1) + 1e-18)
     cam = cam * depth_sign[..., None, None]
     objc = obj[..., None, :, :]
     Rs, ts = _procrustes(objc.expand(cam.shape), cam, wc.expand(cam.shape[:-1]),
                          fast=fast)
-    proj = objc @ _mT(Rs) + ts[..., None, :]
+    proj = bmm(objc, _mT(Rs)) + ts[..., None, :]
     z = torch.where(proj[..., 2].abs() < 1e-12, 1e-12, proj[..., 2])
     uv_hat = proj[..., :2] / z[..., None]
     errs = (((uv_hat - uv[..., None, :, :]) ** 2).sum(-1) * wc).sum(-1)
@@ -184,7 +194,7 @@ def epnp(obj_points, img_points_normalized, weights=None,
     # Validity requires an actual rotation: the polar iteration can return
     # a scaled non-rigid map on degenerate samples.
     eye = torch.eye(3, dtype=R_best.dtype, device=R_best.device)
-    ortho_err = (_mT(R_best) @ R_best - eye).abs().amax(dim=(-2, -1))
+    ortho_err = (bmm(_mT(R_best), R_best) - eye).abs().amax(dim=(-2, -1))
     ok = torch.isfinite(err_best) & (ortho_err < 0.1) \
         & ((det3x3(R_best) - 1.0).abs() < 0.5)
     return R_best, t_best, ok

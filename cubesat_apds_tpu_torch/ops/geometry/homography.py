@@ -5,8 +5,14 @@ A fixed batch of H minimal 4-point samples, all hypotheses solved as one
 batched 8×8 system and scored against all points at once, the winner
 refined by masked DLT on its inliers. The draws come from a CPU
 `torch.Generator` seeded with `config.seed` (same numbers on every
-device) or from a caller-given tensor `r` — tests feed the JAX package's
-draws through it.
+device), uploaded once per (seed, shape, device), or from a caller-given
+tensor `r` — tests feed the JAX package's draws through it.
+
+`find_homography_ransac` takes correspondences with leading batch
+dimensions: B frames run as one pass with B·H hypotheses, every frame
+drawing from the same uniforms scaled by its own count of valid
+correspondences (the JAX package's vmap, where every frame gets the same
+key). A lone frame is the case with no leading dimension.
 """
 
 from __future__ import annotations
@@ -14,10 +20,10 @@ from __future__ import annotations
 import torch
 
 from cubesat_apds_tpu_torch.core.config import RansacConfig
-from cubesat_apds_tpu_torch.core.types import HomographyResult
+from cubesat_apds_tpu_torch.core.types import (
+    HomographyResult, device_const, fold_lead, pick, take_rows, unfold_lead)
 from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
-    cholesky_solve, det3x3)
-from cubesat_apds_tpu_torch.ops.warp import apply_homography
+    bmm, cholesky_solve, det3x3)
 
 
 def _normalize_points(pts, weights):
@@ -97,13 +103,14 @@ def dlt_homography_solve(src, dst, weights=None):
     w2 = torch.cat([weights, weights], dim=-1)
     Aw = A * w2[..., None]
     bw = b * w2
-    AtA = Aw.transpose(-1, -2) @ Aw
-    Atb = (Aw.transpose(-1, -2) @ bw[..., None])[..., 0]
+    Awt = Aw.transpose(-1, -2)
+    AtA = bmm(Awt, Aw)
+    Atb = bmm(Awt, bw[..., None])[..., 0]
     h8 = cholesky_solve(AtA, Atb, damp=1e-8)
     Hn = torch.cat([h8, torch.ones(h8.shape[:-1] + (1,), dtype=h8.dtype,
                                    device=h8.device)], dim=-1)
     Hn = Hn.reshape(h8.shape[:-1] + (3, 3))
-    H = torch.linalg.solve_ex(Td, Hn @ Ts)[0]
+    H = torch.linalg.solve_ex(Td, bmm(Hn, Ts))[0]
     scale = H[..., 2:3, 2:3]
     return H / torch.where(scale.abs() < 1e-12, 1e-12, scale)
 
@@ -134,39 +141,64 @@ _det3 = det3x3        # the JAX package's name for the closed-form det
 
 
 def symmetric_transfer_error(H, src, dst):
-    """Forward reprojection error ||H·src − dst||² per point [..., N]."""
-    return ((apply_homography(H, src) - dst) ** 2).sum(-1)
+    """Forward reprojection error ||H·src − dst||² per point [..., N]
+    (H [..., 3, 3] and the points [..., N, 2] broadcast), H·src by
+    elementwise multiply-adds."""
+    x, y = src[..., 0], src[..., 1]
+    u, v, z = (H[..., i, 0, None] * x + H[..., i, 1, None] * y
+               + H[..., i, 2, None] for i in range(3))
+    z = torch.where(z.abs() < 1e-12, 1e-12, z)
+    proj = torch.stack([u / z, v / z], dim=-1)
+    return ((proj - dst) ** 2).sum(-1)
+
+
+def seeded_uniforms(seed: int, shape, device):
+    """Uniform float32 [0, 1) of `shape` from a CPU generator seeded with
+    `seed` (the same numbers on every device), uploaded to `device` once
+    (`device_const`); callers never write to the result."""
+    gen = torch.Generator().manual_seed(int(seed))
+    u = torch.rand(tuple(shape), generator=gen, dtype=torch.float32)
+    return device_const(u.numpy(), torch.float32, device)
 
 
 def draw_indices(num_valid, shape, seed: int, device):
-    """Uniform ints in [0, max(num_valid, 1)) of `shape`: floats from a
-    CPU generator seeded with `seed`, scaled on `device` (no host sync;
-    the same draws on every device)."""
-    gen = torch.Generator().manual_seed(int(seed))
-    u = torch.rand(shape, generator=gen, dtype=torch.float32).to(device)
+    """Uniform ints in [0, max(num_valid, 1)): `seeded_uniforms` of
+    `shape` scaled on `device` by each num_valid (no host sync). num_valid
+    [...] gives [..., *shape]: one set of uniforms serves every frame."""
+    u = seeded_uniforms(seed, shape, device)
     n = num_valid.clamp(min=1)
+    n = n.reshape(n.shape + (1,) * len(shape))
     return torch.minimum((u * n.to(torch.float32)).floor().long(), n - 1)
 
 
 def _rho_sample(valid, num_valid, quality, u):
-    """PROSAC pools as a fixed batch: valid correspondences ranked by
-    `quality` (lower is better, stable on ties), hypothesis h drawing its
-    sample from the top n_h with n_h growing geometrically from 8 to
-    num_valid. u: [H, 4] uniform floats in [0, 1). Returns [H, 4]
-    correspondence indices."""
-    nh = u.shape[0]
+    """PROSAC pools as a fixed batch, per frame of [B, N]: valid
+    correspondences ranked by `quality` (lower is better, stable on ties),
+    hypothesis h drawing its sample from the top n_h with n_h growing
+    geometrically from 8 to num_valid [B]. u: [H, 4] (or [B, H, 4])
+    uniform floats in [0, 1). Returns [B, H, 4] correspondence indices."""
+    nh = u.shape[-2]
     q = torch.where(valid, quality.to(torch.float32), torch.inf)
-    ranked = torch.argsort(q, stable=True)                   # best first
-    nvf = num_valid.to(torch.float32)
+    ranked = torch.argsort(q, dim=-1, stable=True)           # best first
+    nvf = num_valid.to(torch.float32)[:, None]               # [B, 1]
     nv = nvf.clamp(min=8.0)
     grow = torch.exp2(torch.linspace(0.0, 1.0, nh, device=u.device)
-                      * torch.log2(nv / 8.0)) * 8.0          # [H] in [8, nv]
+                      * torch.log2(nv / 8.0)) * 8.0          # [B, H]
     pool = torch.minimum(torch.ceil(grow), nvf)
     pool = torch.maximum(pool, nvf.clamp(max=8.0)).to(torch.int64)
     pool = pool.clamp(min=1)               # num_valid == 0: no negative r
-    r = torch.minimum((u * pool[:, None].to(torch.float32)).to(torch.int64),
-                      pool[:, None] - 1)
-    return ranked[r]
+    r = torch.minimum((u * pool[..., None].to(torch.float32)).to(torch.int64),
+                      pool[..., None] - 1)
+    return take_rows(ranked, r)
+
+
+def draws_per_frame(r, b: int, nh: int, k: int, dev, dtype):
+    """A caller's draws as [B, H, k]: [H, k] serves every frame, [..., H,
+    k] one set per frame."""
+    r = torch.as_tensor(r, device=dev).to(dtype)
+    if r.dim() == 2:
+        return r.expand(b, nh, k)
+    return r.reshape(b, nh, k)
 
 
 def find_homography_ransac(src, dst, valid=None,
@@ -175,84 +207,101 @@ def find_homography_ransac(src, dst, valid=None,
                            quality=None) -> HomographyResult:
     """Robust homography from fixed-capacity correspondences.
 
-    src, dst: [N, 2]; valid: [N] bool. Returns a HomographyResult whose
-    inlier mask has find_homography_mat's RANSAC mask semantics
-    (reference: homographier mod.rs:243-256).
+    src, dst: [..., N, 2]; valid: [..., N] bool. Leading dimensions are a
+    batch of frames, solved in one pass (the JAX package's vmap of this
+    function); none is one frame. Returns a HomographyResult with the
+    same leading dimensions whose inlier mask has find_homography_mat's
+    RANSAC mask semantics (reference: homographier mod.rs:243-256).
 
     method: "ransac" (inlier-count scoring), "lmeds" (least median of
     squares; inliers from the robust 2.5·σ gate, σ = 1.4826·√median) or
     "rho" (PROSAC-style progressive sampling, the reference's
-    HomographyMethod::RHO, mod.rs:25-31): `quality` [N] ranks the
+    HomographyMethod::RHO, mod.rs:25-31): `quality` [..., N] ranks the
     correspondences (lower is better, e.g. the match distance) and
     hypothesis h draws from the top n_h of them. Without `quality`,
     "rho" is "ransac".
 
-    r: optional draws replacing the seeded ones — [H, 4] indices into the
-    valid entries (in index order) for "ransac" and "lmeds", [H, 4]
-    uniform floats in [0, 1) for "rho" with `quality`.
+    r: optional draws replacing the seeded ones — [H, 4] (every frame) or
+    [..., H, 4] (per frame) indices into the valid entries (in index
+    order) for "ransac" and "lmeds", uniform floats in [0, 1) for "rho"
+    with `quality`.
     """
     if method not in ("ransac", "lmeds", "rho"):
         raise ValueError(f"unknown homography method {method!r}")
     src = src.to(torch.float32)
     dst = dst.to(torch.float32)
-    n = src.shape[0]
+    lead = src.shape[:-2]
+    n = src.shape[-2]
     dev = src.device
     if valid is None:
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
-    num_valid = valid.sum()
+        valid = torch.ones(lead + (n,), dtype=torch.bool, device=dev)
+    if quality is not None:
+        quality = torch.as_tensor(quality, device=dev)
+    src, dst, valid, quality = fold_lead((src, dst, valid, quality),
+                                         len(lead))
+    return unfold_lead(_ransac_batch(src, dst, valid, config, r, method,
+                                     quality), lead)
+
+
+def _ransac_batch(src, dst, valid, config: RansacConfig, r, method: str,
+                  quality) -> HomographyResult:
+    """find_homography_ransac on [B, N] correspondences."""
+    b, n = valid.shape
+    dev = src.device
+    num_valid = valid.sum(-1)                                # [B]
     nh = config.num_hypotheses
 
     if method == "rho" and quality is not None:
-        if r is None:
-            gen = torch.Generator().manual_seed(int(config.seed))
-            r = torch.rand((nh, 4), generator=gen, dtype=torch.float32)
-        sample_idx = _rho_sample(valid, num_valid,
-                                 torch.as_tensor(quality, device=dev),
-                                 torch.as_tensor(r, dtype=torch.float32,
-                                                 device=dev))
+        u = (seeded_uniforms(config.seed, (nh, 4), dev) if r is None
+             else draws_per_frame(r, b, nh, 4, dev, torch.float32))
+        sample_idx = _rho_sample(valid, num_valid, quality, u)
     else:
-        valid_first = torch.argsort((~valid).to(torch.uint8), stable=True)
-        if r is None:
-            r = draw_indices(num_valid, (nh, 4), config.seed, dev)
-        sample_idx = valid_first[torch.as_tensor(r, device=dev).long()]
+        valid_first = torch.argsort((~valid).to(torch.uint8), dim=-1,
+                                    stable=True)
+        r = (draw_indices(num_valid, (nh, 4), config.seed, dev)
+             if r is None else draws_per_frame(r, b, nh, 4, dev, torch.int64))
+        sample_idx = take_rows(valid_first, r)               # [B, H, 4]
 
-    s4 = src[sample_idx]                                     # [H, 4, 2]
-    d4 = dst[sample_idx]
-    Hs = dlt_homography_solve(s4, d4)                        # [H, 3, 3]
+    s4 = take_rows(src, sample_idx)                          # [B, H, 4, 2]
+    d4 = take_rows(dst, sample_idx)
+    Hs = dlt_homography_solve(s4, d4)                        # [B, H, 3, 3]
 
-    err = symmetric_transfer_error(Hs, src[None], dst[None])  # [H, N]
-    finite = torch.isfinite(Hs.reshape(Hs.shape[0], -1)).all(-1)
+    err = symmetric_transfer_error(Hs, src[:, None], dst[:, None])
+    finite = torch.isfinite(Hs.flatten(-2)).all(-1)          # [B, H]
     finite = finite & _sample_nondegenerate(s4) & _sample_nondegenerate(d4)
     finite = finite & (det3x3(Hs).abs() > 1e-6)
     if method == "lmeds":
         big = 1e30
-        err_v = torch.where(valid[None, :] & torch.isfinite(err), err,
+        err_v = torch.where(valid[:, None, :] & torch.isfinite(err), err,
                             torch.nan)
         med = torch.nanquantile(err_v, 0.5, dim=-1, interpolation="nearest")
         med = torch.where(torch.isfinite(med), med, big)
-        best = torch.where(finite, med, big).argmin()
-        hyp_ok = finite[best]
-        thr2 = (2.5 * 1.4826) ** 2 * med[best].clamp(min=1e-12)
-        inliers = (err[best] < thr2) & valid & hyp_ok
+        best = torch.where(finite, med, big).argmin(-1)
+        hyp_ok = pick(finite, best)
+        thr2 = ((2.5 * 1.4826) ** 2
+                * pick(med, best).clamp(min=1e-12))[:, None]
+        inliers = (pick(err, best) < thr2) & valid & hyp_ok[:, None]
     else:
         thr2 = config.reproj_threshold ** 2
-        inl = (err < thr2) & valid[None, :]
+        inl = (err < thr2) & valid[:, None, :]
         scores = torch.where(finite, inl.sum(-1), -1)
-        best = scores.argmax()
-        hyp_ok = scores[best] >= 0        # all hypotheses degenerate → fail
-        inliers = inl[best] & hyp_ok
-    H_best = Hs[best]
+        best = scores.argmax(-1)
+        hyp_ok = pick(scores, best) >= 0  # all hypotheses degenerate → fail
+        inliers = pick(inl, best) & hyp_ok[:, None]
+    H_best = pick(Hs, best)
 
     for _ in range(config.refine_iters):
         H_new = dlt_homography_solve(src, dst, inliers.to(torch.float32))
         inl_new = (symmetric_transfer_error(H_new, src, dst) < thr2) & valid
-        ok_new = (torch.isfinite(H_new).all() & (inl_new.sum() >= inliers.sum())
+        ok_new = (torch.isfinite(H_new).flatten(-2).all(-1)
+                  & (inl_new.sum(-1) >= inliers.sum(-1))
                   & hyp_ok & (det3x3(H_new).abs() > 1e-6))
-        H_best = torch.where(ok_new, H_new, H_best)
-        inliers = torch.where(ok_new, inl_new, inliers)
+        H_best = torch.where(ok_new[:, None, None], H_new, H_best)
+        inliers = torch.where(ok_new[:, None], inl_new, inliers)
 
-    num_inl = inliers.sum(dtype=torch.int32)
+    num_inl = inliers.sum(-1, dtype=torch.int32)
     ok = ((num_valid >= 4) & (num_inl >= 4) & hyp_ok
-          & torch.isfinite(H_best).all() & (det3x3(H_best).abs() > 1e-6))
+          & torch.isfinite(H_best).flatten(-2).all(-1)
+          & (det3x3(H_best).abs() > 1e-6))
     return HomographyResult(H=H_best, inliers=inliers, num_inliers=num_inl,
                             ok=ok)

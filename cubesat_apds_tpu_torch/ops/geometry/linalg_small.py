@@ -5,13 +5,16 @@ The same closed forms and fixed iteration counts as the JAX package
 polar), so that degenerate RANSAC hypotheses fail the same way: the
 damping and floors here decide what a singular minimal sample returns.
 All functions batch over leading dimensions and never synchronise with
-the host.
+the host: their constants (the Jacobi one-hot matrices, the inverse
+iteration's start basis) are uploaded once per device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from cubesat_apds_tpu_torch.core.types import device_const
 
 
 def inv3x3(A):
@@ -43,6 +46,16 @@ def det3x3(A):
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
     g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+
+
+def bmm(a, b):
+    """a [..., m, k] @ b [..., k, n], leading dimensions broadcast, as
+    elementwise products summed over k: one matrix's product has the same
+    bits whatever batch surrounds it (a library product picks its kernel,
+    and so its order of summation, by the size of the batch), so a frame
+    of a batch gets the bits it gets alone. Used by every product of the
+    pose and homography solvers."""
+    return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 
 def _eye(n, like):
@@ -89,9 +102,17 @@ def cholesky_solve(A, b, damp: float = 0.0):
 def lstsq_normal(A, b, damp: float = 1e-9):
     """Least squares via normal equations + unrolled Cholesky.
     A: [..., M, N] (N small), b: [..., M]."""
-    AtA = A.transpose(-1, -2) @ A
-    Atb = (A.transpose(-1, -2) @ b[..., None])[..., 0]
+    At = A.transpose(-1, -2)
+    AtA = bmm(At, A)
+    Atb = bmm(At, b[..., None])[..., 0]
     return cholesky_solve(AtA, Atb, damp=damp)
+
+
+def _one_hot(k: int, p: int, q: int):
+    """The unit matrices at (p, p), (q, q), (p, q) and (q, p), [4, k, k]."""
+    hot = np.zeros((4, k, k))
+    hot[0, p, p] = hot[1, q, q] = hot[2, p, q] = hot[3, q, p] = 1.0
+    return hot
 
 
 def _givens(S, p: int, q: int):
@@ -106,8 +127,7 @@ def _givens(S, p: int, q: int):
     t = torch.where(tiny, 0.0, t)
     c = 1.0 / torch.sqrt(1.0 + t * t)
     s = t * c
-    hot = torch.zeros((4, k, k), dtype=S.dtype, device=S.device)
-    hot[0, p, p] = hot[1, q, q] = hot[2, p, q] = hot[3, q, p] = 1.0
+    hot = device_const(_one_hot(k, p, q), S.dtype, S.device)
     cm1 = (c - 1.0)[..., None, None]
     sm = s[..., None, None]
     return (_eye(k, S) + cm1 * (hot[0] + hot[1]) + sm * hot[2]
@@ -123,8 +143,8 @@ def _jacobi(S, iters: int):
         for p in range(k):
             for q in range(p + 1, k):
                 G = _givens(S, p, q)
-                S = G.transpose(-1, -2) @ S @ G
-                V = V @ G
+                S = bmm(bmm(G.transpose(-1, -2), S), G)
+                V = bmm(V, G)
     w = torch.diagonal(S, dim1=-2, dim2=-1)
     order = torch.argsort(w, dim=-1)
     w_sorted = torch.take_along_dim(w, order, dim=-1)
@@ -148,11 +168,16 @@ def _mgs_orthonormalize(Q):
         for i in range(j):
             v = v - (cols[i] * v).sum(-1, keepdim=True) * cols[i]
         norm = torch.sqrt((v * v).sum(-1, keepdim=True))
-        fallback = torch.zeros(n, dtype=Q.dtype, device=Q.device)
-        fallback[j % n] = 1.0
+        fallback = device_const(np.eye(n)[j % n], Q.dtype, Q.device)
         v = torch.where(norm < 1e-20, fallback, v / norm.clamp(min=1e-20))
         cols[j] = v
     return torch.stack(cols, dim=-1)
+
+
+def _start_basis(n: int, k: int):
+    """The inverse iteration's fixed orthonormal start [n, k] (float32)."""
+    rng = np.random.default_rng(12345)
+    return np.linalg.qr(rng.standard_normal((n, k)))[0].astype(np.float32)
 
 
 def eigh_smallest(A, k: int = 4, iters: int = 3):
@@ -163,16 +188,14 @@ def eigh_smallest(A, k: int = 4, iters: int = 3):
     diag_mean = torch.diagonal(A, dim1=-2, dim2=-1).mean(-1)[..., None, None]
     eps = 1e-5 * diag_mean.clamp(min=1e-30)
     Ad = A + eps * _eye(n, A)
-    rng = np.random.default_rng(12345)
-    Q0 = np.linalg.qr(rng.standard_normal((n, k)))[0].astype(np.float32)
-    Q = torch.as_tensor(Q0, dtype=A.dtype, device=A.device).expand(
+    Q = device_const(_start_basis(n, k), A.dtype, A.device).expand(
         A.shape[:-2] + (n, k))
     for _ in range(iters):
         Q = _mgs_orthonormalize(cholesky_solve(Ad, Q))
-    S = Q.transpose(-1, -2) @ (A @ Q)
+    S = bmm(Q.transpose(-1, -2), bmm(A, Q))
     S = 0.5 * (S + S.transpose(-1, -2))
     _, U = _jacobi(S, 6)
-    return Q @ U
+    return bmm(Q, U)
 
 
 def polar_rotation(S, iters: int = 8):

@@ -11,7 +11,7 @@ import torch
 from cubesat_apds_tpu_torch.ops.geometry.homography import (
     dlt_homography_solve)
 from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
-    eigh3x3, lstsq_normal)
+    bmm, eigh3x3, lstsq_normal)
 
 
 def _weights(obj, weights):
@@ -26,7 +26,7 @@ def _plane_frame(obj, w):
     wsum = w.sum(-1).clamp(min=1e-12)
     c = (obj * w[..., None]).sum(-2) / wsum[..., None]
     centered = (obj - c[..., None, :]) * torch.sqrt(w)[..., None]
-    cov = centered.transpose(-1, -2) @ centered / wsum[..., None, None]
+    cov = bmm(centered.transpose(-1, -2), centered) / wsum[..., None, None]
     _, eigvec = eigh3x3(cov)
     return c, eigvec[..., :, 2], eigvec[..., :, 1]
 
@@ -67,8 +67,8 @@ def planar_pose(obj_points, img_points_normalized, weights=None):
     Rp = Rp * torch.stack([flip, flip, torch.ones_like(flip)],
                           dim=-1)[..., None, :]
     E = torch.stack([e1, e2, torch.linalg.cross(e1, e2, dim=-1)], dim=-1)
-    R = Rp @ E.transpose(-1, -2)
-    t_full = t - (R @ c[..., None])[..., 0]
+    R = bmm(Rp, E.transpose(-1, -2))
+    t_full = t - bmm(R, c[..., None])[..., 0]
     ok = torch.isfinite(R).all(-1).all(-1) & torch.isfinite(t_full).all(-1)
     return R, t_full, ok
 
@@ -121,7 +121,7 @@ def ortho_pose_candidates(obj_points, img_points_normalized, weights=None):
         R = torch.stack([r1, r2, r3], dim=-2)
         tz = 1.0 / s
         t = torch.cat([b * tz[..., None], tz[..., None]], dim=-1) \
-            - (R @ c[..., None])[..., 0]
+            - bmm(R, c[..., None])[..., 0]
         return R, t
 
     Ra, ta = pose(c1, c2)
@@ -149,7 +149,7 @@ def ortho_pose(obj_points, img_points_normalized, weights=None):
     R2, t2, ok = ortho_pose_candidates(obj, uv, w)
 
     def werr(R, t):
-        cam = obj @ R.transpose(-1, -2) + t[..., None, :]
+        cam = bmm(obj, R.transpose(-1, -2)) + t[..., None, :]
         z = torch.where(cam[..., 2].abs() < 1e-12, 1e-12, cam[..., 2])
         e = ((cam[..., :2] / z[..., None] - uv) ** 2).sum(-1)
         e = torch.where(cam[..., 2] <= 0, 1e12, e)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from cubesat_apds_tpu_torch.ops.geometry.linalg_small import bmm
+
 
 def rodrigues_to_matrix(rvec):
     """[..., 3] rotation vector → [..., 3, 3] rotation matrix."""
@@ -21,7 +23,7 @@ def rodrigues_to_matrix(rvec):
     ], dim=-2)
     t = theta[..., None]
     eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device).expand(K.shape)
-    R = eye + torch.sin(t) * K + (1.0 - torch.cos(t)) * (K @ K)
+    R = eye + torch.sin(t) * K + (1.0 - torch.cos(t)) * bmm(K, K)
     return torch.where(small[..., None], eye, R)
 
 

@@ -14,6 +14,13 @@ bit for bit.
 A DB of more than `block` rows takes the big-DB branch of `knn_match`:
 the CUDA kNN-2 kernel (ops/kernels/match_kernel.py) on the card, and
 `knn2_blockwise`, its plain twin, on the CPU or when `kernel="scan"`.
+
+Queries may carry leading batch dimensions ([..., Q] against one DB): a
+batch of frames is matched in one pass — one dense product of all B·Q
+query rows, or ONE kernel launch with B·Q queries on the big-DB branch,
+as the JAX package's single `knn2_fused` call under vmap. A DB with the
+same leading dimensions ([..., M]: each frame its own rows, the pruned
+window) is matched by one batched product.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from cubesat_apds_tpu_torch.core.config import DESC_BITS_PADDED
-from cubesat_apds_tpu_torch.core.types import Matches
+from cubesat_apds_tpu_torch.core.types import Matches, device_const, take_rows
 
 INVALID_DIST = 3.0e38               # float32(3.0e38) sentinel
 _INVALID_KEY = 2**31 - 1
@@ -55,34 +62,37 @@ def pack_bits(bits):
 
 
 def hamming_matrix(q_bits, db_bits):
-    """q_bits {0,1} [Q, B], db_bits {0,1} [M, B] → int32 [Q, M]."""
+    """q_bits {0,1} [..., Q, B], db_bits {0,1} [M, B] (one DB for every
+    leading index: one product of all query rows) or [..., M, B] →
+    int32 [..., Q, M]."""
     qf = q_bits.to(torch.float32)
     df = db_bits.to(torch.float32)
-    dot = (qf @ df.T).to(torch.int32)
+    dot = (qf @ df.transpose(-1, -2)).to(torch.int32)
     pop_q = q_bits.sum(-1, dtype=torch.int32)
     pop_db = db_bits.sum(-1, dtype=torch.int32)
-    return pop_q[:, None] + pop_db[None, :] - 2 * dot
+    return pop_q[..., :, None] + pop_db[..., None, :] - 2 * dot
 
 
 def _top2_with_index(dist, db_valid=None):
-    """Per-row two smallest distances + best index, lowest index winning
-    among equal distances (int32 keys d·M + i, as in the JAX package)."""
-    m = dist.shape[1]
+    """Per-row two smallest distances + best index over the last axis of
+    [..., Q, M], lowest index winning among equal distances (int32 keys
+    d·M + i, as in the JAX package); db_valid [M] or [..., M]."""
+    m = dist.shape[-1]
     if 512 * (m + 1) >= _INVALID_KEY:
         raise ValueError(f"DB block of {m} rows too large for int32 keys")
     d_i = dist.clamp(min=0).to(torch.int32)
     idx = torch.arange(m, dtype=torch.int32, device=dist.device)
-    key = d_i * m + idx[None, :]
+    key = d_i * m + idx
     if db_valid is not None:
-        key = torch.where(db_valid[None, :], key, _INVALID_KEY)
-    best_key = key.amin(dim=1)
+        key = torch.where(db_valid[..., None, :], key, _INVALID_KEY)
+    best_key = key.amin(dim=-1)
     invalid0 = best_key == _INVALID_KEY
     i0 = torch.where(invalid0, 0, best_key % m).to(torch.int32)
     d0 = torch.where(invalid0, INVALID_DIST,
                      torch.div(best_key, m, rounding_mode="floor")
                      .to(torch.float32))
-    key2 = torch.where(key == best_key[:, None], _INVALID_KEY, key)
-    second_key = key2.amin(dim=1)
+    key2 = torch.where(key == best_key[..., None], _INVALID_KEY, key)
+    second_key = key2.amin(dim=-1)
     invalid1 = second_key == _INVALID_KEY
     d1 = torch.where(invalid1, INVALID_DIST,
                      torch.div(second_key, m, rounding_mode="floor")
@@ -100,12 +110,13 @@ def knn2(q_bits, db_bits, q_valid=None, db_valid=None):
 
 
 def _ratio_matches(d0, d1, i0, ratio: float) -> Matches:
-    """Lowe ratio gate: keep m0 iff d0 < d1·ratio."""
-    ratio32 = torch.tensor(ratio, dtype=torch.float32, device=d0.device)
+    """Lowe ratio gate on [..., Q] top-2 results: keep m0 iff
+    d0 < d1·ratio."""
+    ratio32 = device_const(ratio, torch.float32, d0.device)
     good = (d0 < d1 * ratio32) & (d0 < INVALID_DIST)
     return Matches(
-        query_idx=torch.arange(d0.shape[0], dtype=torch.int32,
-                               device=d0.device),
+        query_idx=torch.arange(d0.shape[-1], dtype=torch.int32,
+                               device=d0.device).expand(d0.shape),
         train_idx=i0,
         distance=d0,
         valid=good,
@@ -170,30 +181,40 @@ def knn_match(q_desc_packed, db_desc_packed, ratio: float = 0.3,
               kernel: str = "auto", db_layout=None) -> Matches:
     """k=2 kNN + Lowe ratio on packed uint8 descriptors → Matches of size Q.
 
-    A DB of at most `block` rows (or any DB when `block` is None) is one
-    dense product. A larger one takes the big-DB branch: `kernel` "auto"
-    or "fused" runs `knn2_fused` (the CUDA kernel on CUDA tensors, its
+    q_desc_packed [..., Q, 61] (leading batch dimensions: every frame of
+    a batch against the same DB in one pass), q_valid [..., Q];
+    db_desc_packed [M, 61] with db_valid [M], or one DB per leading index
+    ([..., M, 61], [..., M]).
+
+    A DB of at most `block` rows (or any DB when `block` is None), and
+    every per-frame DB, is one dense product. A larger shared one takes
+    the big-DB branch on all B·Q query rows at once: `kernel` "auto" or
+    "fused" runs `knn2_fused` (one CUDA kernel launch on CUDA tensors, its
     plain twin on CPU tensors); "scan" runs the twin `knn2_blockwise` on
     either device. All are bit-identical. `db_layout` is an optional
     `layout_db_blocks` result for this (DB, db_valid), made once per DB
     by serving paths; the scan ignores it. In this branch `q_valid` masks
     d0 only, as in the JAX package.
     """
-    if block is not None and db_desc_packed.shape[0] > block:
+    shared = db_desc_packed.dim() == 2
+    if shared and block is not None and db_desc_packed.shape[0] > block:
+        lead_q = q_desc_packed.shape[:-1]
+        q_flat = q_desc_packed.reshape(-1, q_desc_packed.shape[-1])
         if kernel in ("auto", "fused"):
             from cubesat_apds_tpu_torch.ops.kernels.match_kernel import (
                 knn2_fused, pack_words)
-            q_words = pack_words(q_desc_packed)
+            q_words = pack_words(q_flat)
             if db_layout is not None:
                 d0, d1, i0 = knn2_fused(q_words, db_layout, block=block)
             else:
                 d0, d1, i0 = knn2_fused(q_words, pack_words(db_desc_packed),
                                         db_valid, block=block)
         elif kernel == "scan":
-            d0, d1, i0 = knn2_blockwise(unpack_bits(q_desc_packed),
+            d0, d1, i0 = knn2_blockwise(unpack_bits(q_flat),
                                         db_desc_packed, block, db_valid)
         else:
             raise ValueError(f"knn_match: unknown kernel {kernel!r}")
+        d0, d1, i0 = (t.reshape(lead_q) for t in (d0, d1, i0))
         if q_valid is not None:
             d0 = torch.where(q_valid, d0, INVALID_DIST)
     else:
@@ -259,7 +280,21 @@ def crosscheck_match(q_desc_packed, db_desc_packed,
     return Matches(query_idx=arange_q, train_idx=i0, distance=d0, valid=ok)
 
 
+def db_rows(table, idx):
+    """Rows of a DB table at match indices idx [..., K]: a table [M, ...]
+    shared by every leading index, or one [..., M, ...] per leading
+    index."""
+    if table.dim() == 2:
+        return table[idx.long()]
+    lead = idx.shape[:-1]
+    out = take_rows(table.reshape((-1,) + table.shape[len(lead):]),
+                    idx.reshape(-1, idx.shape[-1]))
+    return out.reshape(idx.shape + table.shape[len(lead) + 1:])
+
+
 def matched_points(kp_query_xy, kp_train_xy, matches: Matches):
-    """Matched point pairs (fixed capacity; use matches.valid)."""
-    return (kp_query_xy[matches.query_idx.long()],
-            kp_train_xy[matches.train_idx.long()])
+    """Matched point pairs (fixed capacity; use matches.valid): query
+    points [..., Q, 2] and train points [M, 2] (one DB) or [..., M, 2]
+    (one per leading index) at the matches' indices."""
+    return (db_rows(kp_query_xy, matches.query_idx),
+            db_rows(kp_train_xy, matches.train_idx))

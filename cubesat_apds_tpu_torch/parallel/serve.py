@@ -10,9 +10,10 @@ parallel/serve.py).
     `config.match.kernel == "fused"`, else a dense product — and the
     [tp, Q] partials merge into the global top-2 (the makers of
     parallel.sharded_match);
-  * the geometry (RANSAC homography and PnP) runs per frame on the row's
-    first slot, exactly as a lone `localize_frame_jit` step runs it, so a
-    frame's outputs are the lone step's bits.
+  * the geometry (RANSAC homography and PnP) of the row's frames runs as
+    one batch on the row's first slot, through the same batch-first back
+    half as a single-device batch step (`localize_from_matches`), so a
+    row's outputs are the single-device batch step's bits on its frames.
 
 Across processes a row is computed by the processes that hold its slots
 (each extracts the row's features), every process takes part in each
@@ -29,7 +30,7 @@ import torch
 
 from cubesat_apds_tpu_torch.core.config import MatchConfig, PipelineConfig
 from cubesat_apds_tpu_torch.core.types import (
-    CameraModel, HomographyResult, PoseSolution, select, to_device)
+    CameraModel, HomographyResult, PoseSolution, to_device)
 from cubesat_apds_tpu_torch.ops import match as M
 from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute_batch
 from cubesat_apds_tpu_torch.parallel.mesh import (
@@ -169,30 +170,14 @@ def make_batch_localizer(mesh: Mesh, camera: CameraModel,
 def _row_geometry(db: MeshDb, i: int, feats, top2, lb: int, cap: int,
                   camera: CameraModel, config: PipelineConfig,
                   want_pose: bool):
-    """Row i's per-frame geometry on its first slot → the step's outputs
-    of its lb frames, flattened (see _flat)."""
+    """Row i's geometry on its first slot, its lb frames as one batch →
+    the step's outputs of those frames, flattened (see _flat)."""
     dev = db.mesh.devices[i, 0]
     d0, d1, i0 = (t.to(dev).reshape(lb, cap) for t in top2)
-    valid = feats.keypoints.valid.to(dev)
-    d0 = torch.where(valid, d0, M.INVALID_DIST)
-    cam = to_device(camera, dev)
+    kp = to_device(feats.keypoints, dev)
+    d0 = torch.where(kp.valid, d0, M.INVALID_DIST)
+    matches = M._ratio_matches(d0, d1, i0, config.match.ratio)
     xy, obj = db.xy.parts[(i, 0)], db.obj_points.parts[(i, 0)]
-    results = []
-    for f in range(lb):
-        matches = M._ratio_matches(d0[f], d1[f], i0[f], config.match.ratio)
-        kp = to_device(select(feats.keypoints, f), dev)
-        results.append(localize_from_matches(kp, matches, xy, obj,
-                                             db.world_frame, cam, config,
-                                             want_pose))
-    homog = HomographyResult(*(torch.stack([getattr(r.homography, k)
-                                            for r in results])
-                               for k in ("H", "inliers", "num_inliers", "ok")))
-    pose = None
-    if want_pose:
-        pose = PoseSolution(*(torch.stack([getattr(r.pose, k)
-                                           for r in results])
-                              for k in ("rvec", "tvec", "inliers",
-                                        "num_inliers", "ok")))
-    n_match = torch.stack([r.num_matches for r in results])
-    n_kp = torch.stack([r.num_keypoints for r in results])
-    return _flat(homog, pose, n_match, n_kp)
+    r = localize_from_matches(kp, matches, xy, obj, db.world_frame,
+                              to_device(camera, dev), config, want_pose)
+    return _flat(r.homography, r.pose, r.num_matches, r.num_keypoints)

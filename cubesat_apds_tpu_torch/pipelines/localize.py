@@ -18,6 +18,13 @@ A stored DB (store/*, opened with `store.open_store`) loads one LoD at a
 time: `load_device_db`, `load_pruned_device_db`, `Localizer` given a
 store, and the two-stage `localize_coarse_to_fine`. World points are the
 store's ECEF coordinates, computed in float64 on the host at load.
+
+The back half (`localize_from_features`, `localize_from_matches`,
+`solve_pose_recentered`, `_pruned_back_half`, `window_rows`) is written
+once, batch-first: features with leading batch dimensions run match,
+RANSAC homography and PnP-RANSAC of every frame as single passes (the
+JAX package's vmapped batch steps); a lone frame is the case with no
+leading dimension.
 """
 
 from __future__ import annotations
@@ -32,13 +39,15 @@ from cubesat_apds_tpu_torch.core.config import (
     MAX_POINTS, MatchConfig, PipelineConfig)
 from cubesat_apds_tpu_torch.core.types import (
     CameraModel, Correspondences, Features, HomographyResult, Keypoints,
-    Matches, PoseSolution, to_device)
+    Matches, PoseSolution, device_const, fold_lead, to_device, unfold_lead)
 from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
 from cubesat_apds_tpu_torch.ops.geometry.homography import (
     find_homography_ransac)
+from cubesat_apds_tpu_torch.ops.geometry.linalg_small import bmm
 from cubesat_apds_tpu_torch.ops.geometry.pnp import solve_pnp_ransac
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import rodrigues_to_matrix
-from cubesat_apds_tpu_torch.ops.match import knn_match, matched_points
+from cubesat_apds_tpu_torch.ops.match import (
+    db_rows, knn_match, matched_points)
 from cubesat_apds_tpu_torch.store.feature_store import device_block
 
 
@@ -149,6 +158,9 @@ def _store_lods(store):
 
 @dataclasses.dataclass
 class LocalizationResult:
+    """A frame's result; every field leads with the batch's dimensions
+    when the back half ran a batch."""
+
     homography: HomographyResult
     pose: Optional[PoseSolution]
     num_matches: torch.Tensor
@@ -164,19 +176,25 @@ def solve_pose_recentered(db_obj_points, img_points, matches: Matches,
     """PnP against matched world points, recentred on the valid-match
     centroid (ECEF magnitudes ~6.4e6 m starve float32 otherwise):
     cam = R·obj + (t − R·centroid). For world_frame="ecef" the local up
-    (≈ centroid direction) gates hypothesis selection."""
-    obj = db_obj_points[matches.train_idx.long()]
-    w = matches.valid.to(torch.float32)[:, None]
-    centroid = (obj * w).sum(0) / w.sum().clamp(min=1.0)
-    corr = Correspondences(obj_points=(obj - centroid).to(torch.float32),
-                           img_points=img_points, valid=matches.valid)
+    (≈ centroid direction) gates hypothesis selection.
+
+    matches and img_points [..., Q(, 2)] may lead with a batch: each frame
+    gets its own centroid and up vector; db_obj_points [M, 3] is one DB,
+    [..., M, 3] one per frame."""
+    obj = db_rows(db_obj_points, matches.train_idx)
+    w = matches.valid.to(torch.float32)[..., None]
+    centroid = (obj * w).sum(-2) / w.sum(-2).clamp(min=1.0)
+    corr = Correspondences(
+        obj_points=(obj - centroid[..., None, :]).to(torch.float32),
+        img_points=img_points, valid=matches.valid)
     up = None
     if world_frame == "ecef":
-        up = centroid / torch.linalg.vector_norm(centroid).clamp(min=1e-6)
+        up = centroid / torch.linalg.vector_norm(
+            centroid, dim=-1, keepdim=True).clamp(min=1e-6)
     pose = solve_pnp_ransac(corr, camera, pnp_config, up=up, r=r)
     R = rodrigues_to_matrix(pose.rvec)
     # R @ centroid as an elementwise multiply and sum, as the JAX package.
-    r_c = (R * centroid.to(torch.float32)[None, :]).sum(1)
+    r_c = (R * centroid.to(torch.float32)[..., None, :]).sum(-1)
     return PoseSolution(rvec=pose.rvec, tvec=pose.tvec - r_c,
                         inliers=pose.inliers,
                         num_inliers=pose.num_inliers, ok=pose.ok)
@@ -185,7 +203,9 @@ def solve_pose_recentered(db_obj_points, img_points, matches: Matches,
 def localize_from_features(feats: Features, db: DeviceDb,
                            camera: CameraModel, config: PipelineConfig,
                            solve_pose: bool) -> LocalizationResult:
-    """Match + geometry on already-extracted features."""
+    """Match + geometry on already-extracted features: one frame, or a
+    batch (leading dimensions) in one pass — one match of all its
+    queries, one RANSAC and one PnP-RANSAC."""
     kp = feats.keypoints
     matches = knn_match(feats.descriptors, db.descriptors,
                         ratio=config.match.ratio, q_valid=kp.valid,
@@ -199,8 +219,9 @@ def localize_from_matches(kp: Keypoints, matches: Matches, db_xy, db_obj,
                           world_frame: str, camera: CameraModel,
                           config: PipelineConfig,
                           solve_pose: bool) -> LocalizationResult:
-    """The geometry of one frame from its matches: RANSAC homography and,
-    if asked, PnP against the DB's world points."""
+    """The geometry of a frame, or of a batch of frames in one pass, from
+    its matches: RANSAC homography and, if asked, PnP against the DB's
+    world points."""
     q_pts, t_pts = matched_points(kp.xy, db_xy, matches)
     homog = find_homography_ransac(q_pts, t_pts, valid=matches.valid,
                                    config=config.ransac)
@@ -331,9 +352,11 @@ def _pack_prune_rows(desc, xy, obj):
 
 
 def _unpack_prune_rows(rows):
-    desc = rows[:, :16].contiguous().view(torch.uint8)[:, :61]
-    xy = rows[:, 16:18].contiguous().view(torch.float32)
-    obj = rows[:, 18:21].contiguous().view(torch.float32)
+    """[..., 22] int32 rows → (desc [..., 61] uint8, xy [..., 2], obj
+    [..., 3])."""
+    desc = rows[..., :16].contiguous().view(torch.uint8)[..., :61]
+    xy = rows[..., 16:18].contiguous().view(torch.float32)
+    obj = rows[..., 18:21].contiguous().view(torch.float32)
     return desc, xy, obj
 
 
@@ -439,6 +462,9 @@ def load_pruned_device_db(store, fine_lod: int = 0,
 
 @dataclasses.dataclass
 class PrunedLocalizationResult:
+    """The pruned step's result (fields lead with the batch's dimensions
+    when the back half ran a batch)."""
+
     result: LocalizationResult       # the fine-stage result
     coarse_ok: torch.Tensor          # bool — coarse fix succeeded
     window: torch.Tensor             # [4] f32 (x0, x1, y0, y1) ref frame
@@ -449,7 +475,8 @@ class PrunedLocalizationResult:
 
 @dataclasses.dataclass
 class WindowRows:
-    """The rows of a window, gathered into window_capacity slots."""
+    """The rows of a window, gathered into window_capacity slots (fields
+    lead with the windows' batch dimensions)."""
 
     desc: torch.Tensor       # [C, 61] uint8
     xy: torch.Tensor         # [C, 2] float32
@@ -461,53 +488,63 @@ class WindowRows:
 
 
 def window_rows(pdb: PrunedDeviceDb, window) -> WindowRows:
-    """Rows of the pruned DB inside window = (x0, x1, y0, y1).
+    """Rows of the pruned DB inside window = (x0, x1, y0, y1), [..., 4]:
+    one window per frame of a batch (leading dimensions), each with its
+    own window_capacity slots.
 
     The window's cells form ≤ _GRID contiguous runs of sorted rows (one
     per intersected cell row); slot k of the [C] vector takes the k-th row
     of the concatenated runs (rows past C are dropped, and `overflow`
     says so). Cells are a superset of the window, so the exact bbox test
     on the gathered rows sets `valid`."""
-    lo = window[0::2]
-    hi = window[1::2]
+    lead = window.shape[:-1]
+    window = fold_lead(window, len(lead))                    # [B, 4]
+    lo = window[:, 0::2]
+    hi = window[:, 1::2]
     g = pdb.grid
-    gx0 = _grid_cell(lo[0], g[0], g[2])
-    gx1 = _grid_cell(hi[0], g[0], g[2])
-    gy0 = _grid_cell(lo[1], g[1], g[3])
-    gy1 = _grid_cell(hi[1], g[1], g[3])
+    gx0 = _grid_cell(lo[:, 0], g[0], g[2])[:, None]          # [B, 1]
+    gx1 = _grid_cell(hi[:, 0], g[0], g[2])[:, None]
+    gy0 = _grid_cell(lo[:, 1], g[1], g[3])[:, None]
+    gy1 = _grid_cell(hi[:, 1], g[1], g[3])[:, None]
     dev = pdb.rows.device
     gys = torch.arange(_GRID, dtype=torch.int32, device=dev)
-    band_in = (gys >= gy0) & (gys <= gy1)
+    band_in = (gys >= gy0) & (gys <= gy1)                    # [B, G]
     band_start = pdb.starts[(gys * _GRID + gx0).long()]
     band_len = torch.where(
         band_in, pdb.starts[(gys * _GRID + gx1 + 1).long()] - band_start, 0)
-    offs = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
-                      torch.cumsum(band_len, 0, dtype=torch.int32)])
-    total = offs[-1]
+    offs = torch.cat([torch.zeros_like(band_len[:, :1]),
+                      torch.cumsum(band_len, -1, dtype=torch.int32)], -1)
+    total = offs[:, -1:]                                     # [B, 1]
     m_total = pdb.rows.shape[0]
     c = pdb.window_capacity
     k = torch.arange(c, dtype=torch.int32, device=dev)
     # Band of slot k = the number of run ends at or before k.
-    band_of = torch.searchsorted(offs[1:].contiguous(), k, side="right",
-                                 out_int32=True).clamp(0, _GRID - 1)
-    pos = band_start[band_of.long()] + (k - offs[band_of.long()])
+    band_of = torch.searchsorted(
+        offs[:, 1:].contiguous(), k.expand(window.shape[0], c).contiguous(),
+        side="right", out_int32=True).clamp(0, _GRID - 1).long()
+    pos = (torch.take_along_dim(band_start, band_of, -1)
+           + (k - torch.take_along_dim(offs, band_of, -1)))
     sel_ok = k < torch.clamp(total, max=c)
     pos = torch.where(sel_ok, pos.clamp(0, max(m_total - 1, 0)), 0)
     desc_s, xy_s, obj_s = _unpack_prune_rows(pdb.rows[pos.long()])
     sel_ok = (sel_ok
-              & (xy_s[:, 0] >= lo[0]) & (xy_s[:, 0] <= hi[0])
-              & (xy_s[:, 1] >= lo[1]) & (xy_s[:, 1] <= hi[1]))
-    return WindowRows(
+              & (xy_s[..., 0] >= lo[:, 0:1]) & (xy_s[..., 0] <= hi[:, 0:1])
+              & (xy_s[..., 1] >= lo[:, 1:2]) & (xy_s[..., 1] <= hi[:, 1:2]))
+    return unfold_lead(WindowRows(
         desc=desc_s, xy=xy_s, obj=obj_s, valid=sel_ok,
         sel=torch.where(sel_ok, pdb.order[pos.long()], m_total),
-        n_window=sel_ok.sum(dtype=torch.int32), overflow=total > c)
+        n_window=sel_ok.sum(-1, dtype=torch.int32),
+        overflow=total[:, 0] > c), lead)
 
 
 def _pruned_back_half(feats: Features, frame_hw, pdb: PrunedDeviceDb,
                       camera: CameraModel, config: PipelineConfig,
                       solve_pose: bool, margin: float
                       ) -> PrunedLocalizationResult:
-    """Coarse fix, window, fine match and geometry on extracted features."""
+    """Coarse fix, window, fine match and geometry on extracted features:
+    one frame, or a batch (leading dimensions) in one pass — one coarse
+    match and RANSAC, one window per frame, one fine match of every
+    frame's queries against its own window's rows, then the geometry."""
     kp = feats.keypoints
 
     # Stage 1: coarse fix against the small DB.
@@ -523,35 +560,26 @@ def _pruned_back_half(feats: Features, frame_hw, pdb: PrunedDeviceDb,
     # Reference-frame window = the frame's corners through the coarse H,
     # grown by `margin` of its extent on each side.
     h, w = frame_hw
-    corners = torch.tensor([[0.0, 0.0, 1.0], [w, 0.0, 1.0], [0.0, h, 1.0],
-                            [w, h, 1.0]], dtype=torch.float32,
-                           device=kp.xy.device)
-    proj = corners @ coarse_h.H.T
-    den = proj[:, 2:3]
-    pxy = proj[:, :2] / torch.where(den.abs() < 1e-9, 1e-9, den)
-    lo = pxy.amin(0)
-    hi = pxy.amax(0)
+    corners = device_const([[0.0, 0.0, 1.0], [w, 0.0, 1.0], [0.0, h, 1.0],
+                             [w, h, 1.0]], torch.float32, kp.xy.device)
+    proj = bmm(corners, coarse_h.H.transpose(-1, -2))        # [..., 4, 3]
+    den = proj[..., 2:3]
+    pxy = proj[..., :2] / torch.where(den.abs() < 1e-9, 1e-9, den)
+    lo = pxy.amin(-2)
+    hi = pxy.amax(-2)
     pad = margin * (hi - lo)
     lo = lo - pad
     hi = hi + pad
-    window = torch.stack([lo[0], hi[0], lo[1], hi[1]])
+    window = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]],
+                         dim=-1)
 
     # Stage 2: the window's rows. Stage 3: fine match + geometry on them.
     win = window_rows(pdb, window)
     fm = knn_match(feats.descriptors, win.desc, ratio=config.match.ratio,
                    q_valid=kp.valid, db_valid=win.valid,
                    block=config.match.db_block, kernel=config.match.kernel)
-    q_pts, t_pts = matched_points(kp.xy, win.xy, fm)
-    homog = find_homography_ransac(q_pts, t_pts, valid=fm.valid,
-                                   config=config.ransac)
-    pose = None
-    if solve_pose:
-        pose = solve_pose_recentered(win.obj, q_pts, fm, camera, config.pnp,
-                                     world_frame=pdb.world_frame)
-    fine = LocalizationResult(homography=homog, pose=pose,
-                              num_matches=fm.count(),
-                              num_keypoints=kp.count(), keypoints=kp,
-                              matches=fm)
+    fine = localize_from_matches(kp, fm, win.xy, win.obj, pdb.world_frame,
+                                 camera, config, solve_pose)
     return PrunedLocalizationResult(
         result=fine, coarse_ok=coarse_h.ok, window=window,
         n_window=win.n_window, overflow=win.overflow, sel=win.sel)

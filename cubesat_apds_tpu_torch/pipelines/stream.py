@@ -6,10 +6,13 @@ pipelines/stream.py).
     event marking its arrival) while the step runs on frame t;
   * the step takes a micro-batch of `batch` frames: the AKAZE front end
     runs on the whole batch (kernels A and B launched once per batch),
-    then the match and geometry back half runs frame by frame, each frame
-    drawing its RANSAC hypotheses exactly as when served alone;
+    then the match and geometry back half runs on the whole batch as one
+    pass (the JAX package's vmap: one match of all the batch's queries —
+    one kNN-2 kernel launch on a big DB — one RANSAC and one PnP-RANSAC),
+    each frame drawing its RANSAC hypotheses as when served alone;
   * every scalar output of a frame is packed into ONE float32 vector
-    (`_pack_outputs`), so a batch costs one device-to-host copy;
+    (`_pack_outputs`, a [B, 21] block for a batch), so a batch costs one
+    device-to-host copy;
   * a PrunedDeviceDb serves each frame through the spatial window; a
     frame whose coarse fix fails or whose window overflows reruns through
     the full-DB fallback, synchronously;
@@ -20,8 +23,8 @@ pipelines/stream.py).
 As in the JAX stream, up to `prefetch` frames' steps (`prefetch // batch`
 batches, at least one) are queued before the oldest result is fetched:
 the AKAZE front end reads nothing back to the host, so its launches run
-ahead of the device. The back half still waits on the device where it
-copies its RANSAC and PnP draws up from the host.
+ahead of the device, and the back half's constants and draws are uploaded
+once.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import numpy as np
 import torch
 
 from cubesat_apds_tpu_torch.core.config import PipelineConfig
-from cubesat_apds_tpu_torch.core.types import CameraModel, select, to_device
+from cubesat_apds_tpu_torch.core.types import CameraModel, to_device
 from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute_batch
 from cubesat_apds_tpu_torch.pipelines.localize import (
     PrunedDeviceDb, _pruned_back_half, localize_frame_pruned_fallback_jit,
@@ -48,20 +51,22 @@ _MARGIN = 0.25
 
 
 def _pack_outputs(h, num_matches, num_keypoints, pose):
-    """Every scalar output of a frame as ONE [21] float32 vector: H
-    (0–8), h_ok/h_inliers/matches/keypoints (9–12), rvec (13–15), tvec
-    (16–18), pose_ok (19), pose_inliers (20) — the single definition of
-    the packed layout; `_unpack` is its only reader."""
-    def f(x):
-        return torch.as_tensor(x).to(torch.float32).reshape(-1)
+    """Every scalar output of a frame as ONE [21] float32 vector ([..., 21]
+    for a batch): H (0–8), h_ok/h_inliers/matches/keypoints (9–12), rvec
+    (13–15), tvec (16–18), pose_ok (19), pose_inliers (20) — the single
+    definition of the packed layout; `_unpack` is its only reader."""
+    lead = h.ok.shape
 
-    dev = h.H.device
+    def f(x):
+        return torch.as_tensor(x).to(torch.float32).reshape(lead + (-1,))
+
     tail = [f(h.ok), f(h.num_inliers), f(num_matches), f(num_keypoints)]
     if pose is not None:
         tail += [f(pose.rvec), f(pose.tvec), f(pose.ok), f(pose.num_inliers)]
     else:
-        tail += [torch.zeros(8, dtype=torch.float32, device=dev)]
-    return torch.cat([f(h.H)] + tail)
+        tail += [torch.zeros(lead + (8,), dtype=torch.float32,
+                             device=h.H.device)]
+    return torch.cat([f(h.H)] + tail, dim=-1)
 
 
 def _as_float(frames):
@@ -151,33 +156,26 @@ class StreamingLocalizer:
 
     def _step(self, frames):
         """frames [B, H, W] on the device → [B, 21] packed outputs; pruned,
-        [B, 23]: coarse_ok (21) and overflow (22) appended."""
+        [B, 23]: coarse_ok (21) and overflow (22) appended. The front half
+        and the back half each run once for the whole batch."""
         frames = _as_float(frames)
         if self.mesh is not None:
             homog, pose, n_match, n_kp = self._serve(frames, self.db)
-            return torch.stack([_pack_outputs(
-                select(homog, b), n_match[b], n_kp[b],
-                None if pose is None else select(pose, b))
-                for b in range(frames.shape[0])])
+            return _pack_outputs(homog, n_match, n_kp, pose)
         feats = detect_and_compute_batch(frames, self.config.akaze)
-        rows = []
-        for b in range(frames.shape[0]):
-            f = select(feats, b)
-            if self._pruned:
-                pr = _pruned_back_half(f, tuple(frames.shape[1:]), self.db,
-                                       self.camera, self.config,
-                                       self.solve_pose, _MARGIN)
-                r = pr.result
-                flags = torch.stack([pr.coarse_ok, pr.overflow]).float()
-                rows.append(torch.cat([_pack_outputs(
-                    r.homography, r.num_matches, r.num_keypoints, r.pose),
-                    flags]))
-            else:
-                r = localize_from_features(f, self.db, self.camera,
-                                           self.config, self.solve_pose)
-                rows.append(_pack_outputs(r.homography, r.num_matches,
-                                          r.num_keypoints, r.pose))
-        return torch.stack(rows)
+        if self._pruned:
+            pr = _pruned_back_half(feats, tuple(frames.shape[1:]), self.db,
+                                   self.camera, self.config, self.solve_pose,
+                                   _MARGIN)
+            r = pr.result
+            flags = torch.stack([pr.coarse_ok, pr.overflow], dim=-1).float()
+            return torch.cat([_pack_outputs(r.homography, r.num_matches,
+                                            r.num_keypoints, r.pose),
+                              flags], dim=-1)
+        r = localize_from_features(feats, self.db, self.camera, self.config,
+                                   self.solve_pose)
+        return _pack_outputs(r.homography, r.num_matches, r.num_keypoints,
+                             r.pose)
 
     def _maybe_fallback(self, packed: np.ndarray, frame) -> np.ndarray:
         """Pruned mode: rerun a coarse-miss / overflowed frame through
