@@ -12,8 +12,10 @@
    level with the plan, eager and device time and byte bound, and the
    device time of 15 one-pixel launches (the floor of a frame's 15
    cycles); kernel B (patch
-   sampler, a direct gather) at K=2048 with S=109 and S=441 (bit-exact),
-   beside one index_select of the same samples; kernel 4 (Hamming kNN-2
+   sampler, a direct gather) at the main path's K (the capacity ladder's
+   rung for bench.py's frame, 1280) and at K=2048 with S=109 and S=441
+   (bit-exact), beside one index_select of the same samples; kernel 4
+   (Hamming kNN-2
    on int8 tensor cores) bit-exact on d0, d1 and i0 at Q=2048 ×
    M=1,048,576, on a ragged M=1,000,003 with ~5% invalid rows and on rows
    duplicated across the kernel's chunk edges, beside torch._int_mm of the
@@ -32,7 +34,12 @@
    cubesat_apds_tpu_torch.bench.scene, which `apds-torch bench` times) through
    Localizer.localize with solve_pose=True: the homography must recover the
    (13, 7) px shift within 1 px, the launch counters must show 15 kernel-A
-   and 2 kernel-B launches for the frame, and the same frame run through
+   and 2 kernel-B launches for the frame (kernel B's is the count its
+   kernel keeps on the device: it runs inside the ladder's CUDA graph,
+   whose kernels the profiler's trace misattributes between sessions;
+   every kernel-B count of this script is that counter's, and includes
+   the warm-up launches of a ladder graph captured in its window, which
+   each check adds to what it expects), and the same frame run through
    the port on the CPU must agree (homography-inlier Jaccard ≥ 0.95, pose
    ok flag equal, rotation within 0.1°). Times the warmed step: median of
    10, host clock around a synchronised step, with CUDA events recorded
@@ -165,6 +172,23 @@
    4 scenes each, in fast and hybrid: tests/test_accuracy.py's bounds.
    (d) a store built in fast mode: check_descriptor_mode accepts fast and
    refuses exact, and the store serves a nominal frame.
+11b. Ladder phase (slice 11, after the sync phase): the capacity
+   ladder in exact, fast and hybrid modes on a sparse 512² frame at
+   capacity 2048 (the first rung), bench.py's 512² frame at capacity 2048
+   (a middle rung), the same frame at capacity 1024 (the last rung) and a
+   build batch of 8 × 256² tiles at capacity 8192: the rung the device
+   chose (read after the call) equals the host formula's; the features
+   equal adaptive_buckets=1 bit for bit; a warmed call runs under
+   set_sync_debug_mode("error"); a held result is unchanged by the next
+   call of its key; kernel B 2 launches a step (4 in fast/hybrid) on its
+   device counter (the profiler's events by kernel name are printed
+   beside them), and against its twin at the rung's K; the graph's pool beside the eager all-slot
+   stage's peak; the stage's device ms at capacity, at the rung and on
+   the live prefix, the graph's call, its static copies and output
+   clones. The build phase (7) runs the build four times, paired:
+   adaptive_buckets=1, the ladder, the ladder, adaptive_buckets=1; the
+   stores' rows equal bit for bit and the times are printed beside the
+   card's name and power limit (a record, not a claim).
 15. CLI phase (slice 9; cubesat_apds_tpu_torch.cli.main called in-process
    on cuda:0, its stdout parsed, the launch counters zeroed just before
    and read just after each call): (a) preprocess of the build image's
@@ -298,7 +322,7 @@ def graph_ms(torch, fn, reps=20, rounds=5):
     return _median_event_ms(torch, graph.replay, reps, rounds)
 
 
-def kernel_phase(torch, dev):
+def kernel_phase(torch, dev, k_path):
     from cubesat_apds_tpu_torch.core.config import AkazeConfig
     from cubesat_apds_tpu_torch.ops.features.scale_space import (
         evolution_metadata, fed_tau_by_process_time)
@@ -379,8 +403,48 @@ def kernel_phase(torch, dev):
         f"{a_dev_ms:.4f} ms; launch floor (15 one-pixel launches from a "
         f"CUDA graph) {floor_ms:.4f} ms")
 
-    log("kernel B (patch sampler) vs plain twin on the card:")
-    L, H, W, K = 16, 512, 512, 2048
+    log("kernel B (patch sampler) vs plain twin on the card, at the main "
+        f"path's K = {k_path} (the ladder's rung for bench.py's frame) and "
+        "at the capacity's K = 2048:")
+    b = {K: kernel_b_case(torch, dev, rng, K) for K in (k_path, 2048)}
+    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / FP32_FLOPS) * 1e3
+    log(f"bounds: kernel A {a_bound:.5f} ms ({a_bytes} B, {a_flops} flops "
+        f"over the frame's 15 cycles); kernel B at S=109+441: " + "; ".join(
+            f"K={K} {r['ms']:.4f} ms = {r['ms'] / r['library_ms']:.3f} x "
+            f"index_select (device {r['device_ms']:.4f} ms = "
+            f"{r['device_ms'] / r['library_device_ms']:.3f} x), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bytes']} B)" for K, r in b.items()))
+    main = b[k_path]
+    return [
+        {"name": "fed_cycle", "route": "cuda",
+         "source": "cubesat_apds_tpu_torch/csrc/fed_cycle.cu",
+         "replaces": "cubesat_apds_tpu/ops/pallas/diffusion.py:46",
+         "max_abs_err": a_err, "ms": a_ms, "device_ms": a_dev_ms,
+         "launch_floor_ms": floor_ms, "plain_ms": a_plain_ms,
+         "bound_ms": a_bound,
+         "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
+                      >= a_flops / FP32_FLOPS else "operations"),
+         "library_ms": None},
+        {"name": "sample_patches", "route": "cuda",
+         "source": "cubesat_apds_tpu_torch/csrc/sample_patches.cu",
+         "replaces": "cubesat_apds_tpu/ops/pallas/sample_kernel.py:44",
+         "max_abs_err": max(r["max_abs_err"] for r in b.values()),
+         "K": k_path, "ms": main["ms"], "device_ms": main["device_ms"],
+         "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+         "bound_by": "bytes", "library_ms": main["library_ms"],
+         "library_device_ms": main["library_device_ms"],
+         "at_capacity": dict(b[2048], K=2048, bound_by="bytes")},
+    ]
+
+
+def kernel_b_case(torch, dev, rng, K):
+    """Kernel B against its twin on a 16-level 512² stack at K keypoints,
+    S = 109 and 441 at the main path's reach (±29) and S = 441 at ±45:
+    bit-exact; eager, device, twin and index_select times and the byte
+    bound summed over the main path's two launches (S = 109 + 441)."""
+    from cubesat_apds_tpu_torch.ops.kernels import sample_kernel
+
+    L, H, W = 16, 512, 512
     stack = torch.from_numpy(
         rng.standard_normal((L, H, W, 4)).astype(np.float32)).to(dev)
     stack[..., 3] = 0
@@ -392,8 +456,8 @@ def kernel_phase(torch, dev):
     cx_np = np.array([rng.integers(0, w) for w in hw[lvl_np, 1]], np.int32)
     cy_np = np.array([rng.integers(0, h) for h in hw[lvl_np, 0]], np.int32)
     lvl = torch.from_numpy(lvl_np).to(dev)
-    b_err, b_bytes = 0.0, 0
-    b_ms = b_dev_ms = b_plain_ms = b_lib_ms = b_lib_dev_ms = 0.0
+    out = dict(max_abs_err=0.0, bytes=0, ms=0.0, device_ms=0.0,
+               plain_ms=0.0, library_ms=0.0, library_device_ms=0.0)
     for S, reach in ((109, 29), (441, 29), (441, 45)):
         iy = torch.from_numpy((cy_np[:, None] + rng.integers(
             -reach, reach + 1, (K, S))).astype(np.int32)).to(dev)
@@ -413,7 +477,7 @@ def kernel_phase(torch, dev):
         log(f"  K={K} S={S} reach=±{reach}: bit_exact={torch.equal(got, ref)} "
             f"kernel={ms:.4f} ms (device {dms:.4f}) plain={pms:.4f} ms")
         check(torch.equal(got, ref), f"kernel B K={K} S={S} ±{reach} bit-exact")
-        b_err = max(b_err, err)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
         if reach == 29:            # the main path's sample reach
             # The library yardstick: one index_select of the flat stack at
             # the twin's clamped linear indices (made outside the timing).
@@ -428,38 +492,16 @@ def kernel_phase(torch, dev):
             log(f"    library index_select of the same samples: {lms:.4f} ms "
                 f"(device {dlms:.4f}); kernel / index_select = "
                 f"{ms / lms:.3f} (device {dms / dlms:.3f})")
-            b_ms += ms
-            b_dev_ms += dms
-            b_plain_ms += pms
-            b_lib_ms += lms
-            b_lib_dev_ms += dlms
+            out["ms"] += ms
+            out["device_ms"] += dms
+            out["plain_ms"] += pms
+            out["library_ms"] += lms
+            out["library_device_ms"] += dlms
             # Per sample: iy and ix read, one 8-byte texel read, 16 bytes
             # written.
-            b_bytes += K * S * 32
-    a_bound = max(a_bytes / HBM_BYTES_PER_S, a_flops / FP32_FLOPS) * 1e3
-    b_bound = b_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"bounds: kernel A {a_bound:.5f} ms ({a_bytes} B, {a_flops} flops "
-        f"over the frame's 15 cycles), kernel B {b_bound:.5f} ms "
-        f"({b_bytes} B at S=109+441); kernel B at S=109+441 "
-        f"{b_ms:.4f} ms = {b_ms / b_lib_ms:.3f} x index_select (device "
-        f"{b_dev_ms:.4f} ms = {b_dev_ms / b_lib_dev_ms:.3f} x)")
-    return [
-        {"name": "fed_cycle", "route": "cuda",
-         "source": "cubesat_apds_tpu_torch/csrc/fed_cycle.cu",
-         "replaces": "cubesat_apds_tpu/ops/pallas/diffusion.py:46",
-         "max_abs_err": a_err, "ms": a_ms, "device_ms": a_dev_ms,
-         "launch_floor_ms": floor_ms, "plain_ms": a_plain_ms,
-         "bound_ms": a_bound,
-         "bound_by": ("bytes" if a_bytes / HBM_BYTES_PER_S
-                      >= a_flops / FP32_FLOPS else "operations"),
-         "library_ms": None},
-        {"name": "sample_patches", "route": "cuda",
-         "source": "cubesat_apds_tpu_torch/csrc/sample_patches.cu",
-         "replaces": "cubesat_apds_tpu/ops/pallas/sample_kernel.py:44",
-         "max_abs_err": b_err, "ms": b_ms, "device_ms": b_dev_ms,
-         "plain_ms": b_plain_ms, "bound_ms": b_bound, "bound_by": "bytes",
-         "library_ms": b_lib_ms, "library_device_ms": b_lib_dev_ms},
-    ]
+            out["bytes"] += K * S * 32
+    out["bound_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    return out
 
 
 def batch_kernel_phase(torch, dev, batch=STREAM_BATCH):
@@ -771,7 +813,6 @@ def rotation_deg(rv_a, rv_b):
 
 def slice_phase(torch, dev, profile_dir):
     from cubesat_apds_tpu_torch.bench import scene
-    from cubesat_apds_tpu_torch.ops.kernels import diffusion, sample_kernel
     from cubesat_apds_tpu_torch.pipelines.localize import Localizer
 
     # bench.py's scene, from the port's bench module: its DB is the port's
@@ -786,15 +827,20 @@ def slice_phase(torch, dev, profile_dir):
 
     gpu.localize(frame_t)                                   # warm-up
     torch.cuda.synchronize()
-    diffusion.fed_cycle_cuda.launches = 0
-    sample_kernel.sample_patches_cuda.launches = 0
+    _reset_launches()
     res = gpu.localize(frame_t)
     torch.cuda.synchronize()
-    launches = {"fed_cycle": diffusion.fed_cycle_cuda.launches,
-                "sample_patches": sample_kernel.sample_patches_cuda.launches}
-    log(f"launches in one frame: {launches}")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2},
+    counted = _read_launches()
+    launches = {k: counted[k] for k in ("fed_cycle", "sample_patches")}
+    log(f"launches in one frame: {launches} (kernel B on its device "
+        f"counter, inside the ladder's graph; {counted.warmup} of them in "
+        "warm-ups)")
+    check(launches == {"fed_cycle": 15,
+                       "sample_patches": 2 + counted.warmup},
           "15 kernel-A and 2 kernel-B launches per frame")
+    events = kernel_events(torch, lambda: gpu.localize(frame_t))
+    log(f"the profiler's device events by kernel name: {events} (logged: "
+        "its trace misattributes CUDA-graph kernels between sessions)")
 
     H = res.homography.H.cpu().numpy()
     n_kp = int(res.num_keypoints)
@@ -852,20 +898,40 @@ def slice_phase(torch, dev, profile_dir):
     return launches, med, gpu, frame_t
 
 
+# Kernel B counts its launches on the device (eager or replayed from a
+# ladder graph): its count is the change of that counter since the last
+# _reset_launches(), the warm-ups of ladder graphs captured in the window
+# included (the read's `warmup` says how many of them).
+_B_BASE = {"device": 0, "warmup": 0}
+
+
+class _Launches(dict):
+    """Kernel launches in a window, by kernel; `warmup`: kernel B's
+    launches in the warm-ups of ladder graphs captured in it (part of
+    its count)."""
+    warmup = 0
+
+
 def _reset_launches():
+    from cubesat_apds_tpu_torch.ops.features import ladder
     from cubesat_apds_tpu_torch.ops.kernels import (
         diffusion, match_kernel, sample_kernel)
     diffusion.fed_cycle_cuda.launches = 0
-    sample_kernel.sample_patches_cuda.launches = 0
     match_kernel.knn2_hamming_cuda.launches = 0
+    _B_BASE["device"] = sample_kernel.device_launches("cuda")
+    _B_BASE["warmup"] = ladder.warmup_launches()
 
 
 def _read_launches():
+    from cubesat_apds_tpu_torch.ops.features import ladder
     from cubesat_apds_tpu_torch.ops.kernels import (
         diffusion, match_kernel, sample_kernel)
-    return {"fed_cycle": diffusion.fed_cycle_cuda.launches,
-            "sample_patches": sample_kernel.sample_patches_cuda.launches,
-            "knn2_hamming": match_kernel.knn2_hamming_cuda.launches}
+    out = _Launches(fed_cycle=diffusion.fed_cycle_cuda.launches,
+                    sample_patches=sample_kernel.device_launches("cuda")
+                    - _B_BASE["device"],
+                    knn2_hamming=match_kernel.knn2_hamming_cuda.launches)
+    out.warmup = ladder.warmup_launches() - _B_BASE["warmup"]
+    return out
 
 
 def timed_steps(torch, step, label):
@@ -962,9 +1028,10 @@ def bigdb_phase(torch, dev, profile_dir):
     torch.cuda.synchronize()
     launches = _read_launches()
     log(f"big-DB launches in one frame: {launches}")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2,
+    check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
                        "knn2_hamming": 1},
-          "1 kNN-2, 15 kernel-A and 2 kernel-B launches per big-DB frame")
+          "1 kNN-2, 15 kernel-A and 2 kernel-B launches per big-DB frame "
+          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
     H = res.homography.H.cpu().numpy()
     log(f"big DB: keypoints={int(res.num_keypoints)} "
         f"matches={int(res.num_matches)} "
@@ -1028,9 +1095,10 @@ def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
     launches = _read_launches()
     log(f"pruned launches in one frame: {launches} (the coarse and window "
         f"DBs are below db_block: dense matches)")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2,
+    check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
                        "knn2_hamming": 0},
-          "15 kernel-A and 2 kernel-B launches per pruned frame")
+          "15 kernel-A and 2 kernel-B launches per pruned frame "
+          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
     H = pr.result.homography.H.cpu().numpy()
     p_ids = inlier_ids(pr.result, pr.sel)
     f_ids = inlier_ids(full_res)
@@ -1214,10 +1282,12 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     check([r.frame_id for r in results] == list(range(len(frames))),
           f"{label}: {len(frames)} frames back, in order")
     check(launches["fed_cycle"] == 15 * (steps + s.fallback_frames)
-          and launches["sample_patches"] == 2 * (steps + s.fallback_frames),
+          and launches["sample_patches"]
+          == 2 * (steps + s.fallback_frames) + launches.warmup,
           f"{label}: 15 kernel-A and 2 kernel-B launches per batch of "
           f"{b} ({launches['fed_cycle']} and {launches['sample_patches']} "
-          f"for {steps} batches, {s.fallback_frames} fallback frames)")
+          f"for {steps} batches, {s.fallback_frames} fallback frames; "
+          f"{launches.warmup} kernel-B launches in ladder warm-ups)")
     if kind == "full1M":
         # The batched back half matches a batch's B·capacity queries in
         # ONE kernel-4 launch, as the JAX package's single knn2_fused call
@@ -1561,6 +1631,229 @@ def sync_phase(torch, dev, loc, frame_t, image):
             "per_keypoint_stages": stages}
 
 
+# ---- slice 11: the capacity ladder on the card ------------------------------
+
+LADDER_MODES = {"exact": {},
+                "fast": dict(descriptor_mode="fast", orientation_mode="fast"),
+                "hybrid": dict(descriptor_mode="hybrid", hybrid_subcells=2)}
+
+
+def build_tiles(torch, dev, image):
+    """A build batch: 8 tiles of 256² from the build image's corner."""
+    return torch.from_numpy(np.stack(
+        [image[256 * (i // 4):256 * (i // 4 + 1),
+               256 * (i % 4):256 * (i % 4 + 1)] for i in range(8)])).to(dev)
+
+
+def ladder_cases(torch, dev, image):
+    """(label, images [B, H, W] on the card, AkazeConfig) of the ladder
+    phase: the first, a middle and the last rung, and a build batch."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.bench import make_frame
+    from cubesat_apds_tpu_torch.core.config import PipelineConfig
+
+    frame = make_frame(np.random.default_rng(SEED))
+    sparse = np.zeros_like(frame)
+    sparse[:192, :192] = frame[:192, :192]
+    base = serving_config().akaze
+    build = PipelineConfig().akaze
+    return [
+        ("sparse 512² frame, capacity 2048",
+         torch.from_numpy(sparse)[None].to(dev), base),
+        ("512² frame, capacity 2048", torch.from_numpy(frame)[None].to(dev),
+         base),
+        ("512² frame, capacity 1024", torch.from_numpy(frame)[None].to(dev),
+         dataclasses.replace(base, capacity=1024)),
+        (f"build batch 8 x 256², capacity {build.capacity}",
+         build_tiles(torch, dev, image), build),
+    ]
+
+
+def path_rungs(torch, dev, image):
+    """Kernel B's K a stack on the main path's frame and on a build batch:
+    the ladder's rung for each (its largest live count)."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        _bucket_sizes, _front_end, rung_index)
+
+    out = {}
+    # The cases: the sparse frame, bench.py's frame (the main path's), the
+    # same at capacity 1024, the build batch.
+    for key, (_, x, akaze) in zip((None, "frame", None, "build"),
+                                  ladder_cases(torch, dev, image)):
+        if key is None:
+            continue
+        kps = _front_end(x, akaze, akaze.capacity, None)[0]
+        buckets = _bucket_sizes(akaze.capacity, akaze.adaptive_buckets)
+        out[key] = buckets[int(rung_index(kps.valid.sum(-1).max(), buckets))]
+    log(f"kernel B's K a stack on the main path (the ladder's rung): {out}")
+    return out
+
+
+def kernel_events(torch, fn):
+    """Device kernels of one call of `fn` under torch.profiler, counted by
+    the port's kernel names (kernel A, kernel B, kernel 4)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"fed_cycle": "fed_cycle_kernel",
+             "sample_patches": "sample_patches_kernel",
+             "knn2_hamming": "knn2_partial_kernel"}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {k: sum(n in e for e in ev) for k, n in names.items()}
+
+
+def _same_features(torch, a, b):
+    return torch.equal(a.descriptors, b.descriptors) and all(
+        torch.equal(getattr(a.keypoints, k), getattr(b.keypoints, k))
+        for k in ("xy", "size", "angle", "response", "octave", "class_id",
+                  "valid"))
+
+
+def ladder_phase(torch, dev, image):
+    """The capacity ladder (slice 11) in exact, fast and hybrid modes on
+    four cases: the rung the device chose against the host formula, the
+    features against adaptive_buckets=1 bit for bit, a warmed call under
+    set_sync_debug_mode("error"), a held result unchanged by the next call
+    of its key, kernel B's launches on its device counter (the profiler's
+    events beside them), kernel B against its twin at the rung's K, the
+    graph's pool beside the eager stage's peak, and the stage's device
+    time at capacity, at the rung and on the live prefix."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.ops.features import ladder
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        _bucket_sizes, _front_end, adaptive_orient_describe,
+        detect_and_compute_batch, orient_describe, rung_index)
+
+    t_phase = time.perf_counter()
+    out, chosen = {}, {}
+    for mode, kw in LADDER_MODES.items():
+        chosen[mode] = set()
+        for case, x, base in ladder_cases(torch, dev, image):
+            label = f"{mode}: {case}"
+            akaze = dataclasses.replace(base, **kw)
+            flat = dataclasses.replace(akaze, adaptive_buckets=1)
+            cap = akaze.capacity
+            buckets = _bucket_sizes(cap, akaze.adaptive_buckets)
+            kps, packed, level_hw, grids = _front_end(x, akaze, cap, None)
+            live = int(kps.valid.sum(-1).max())
+            host = int(rung_index(torch.tensor(live), buckets))
+            rung = buckets[host]
+
+            known = {g.key for g in ladder.ladder_graphs()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = detect_and_compute_batch(x, akaze)   # a new key captures
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            graph = ladder.ladder_graphs()[-1]
+            captured = graph.key not in known
+            device_rung = graph.last_rung()
+            check(device_rung == host, f"{label}: the device's rung "
+                  f"({device_rung}) is the host formula's ({host}: "
+                  f"{rung} slots for {live} live)")
+            chosen[mode].add("first" if host == 0 else "last"
+                             if host == len(buckets) - 1 else "middle")
+            want = detect_and_compute_batch(x, flat)
+            check(_same_features(torch, first, want), f"{label}: the "
+                  "ladder's features equal adaptive_buckets=1 bit for bit")
+            held = [t.clone() for t in (first.descriptors,
+                                        first.keypoints.angle)]
+            detect_and_compute_batch(x.flip(-1), akaze)     # same key
+            torch.cuda.synchronize()
+            check(torch.equal(first.descriptors, held[0]) and torch.equal(
+                first.keypoints.angle, held[1]), f"{label}: a held result "
+                "is unchanged by the next call of its key")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                again = detect_and_compute_batch(x, akaze)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(_same_features(torch, again, want), f"{label}: a warmed "
+                  "call runs under set_sync_debug_mode('error'), the same "
+                  "bits")
+            _reset_launches()
+            events = kernel_events(torch, lambda: detect_and_compute_batch(
+                x, akaze))
+            counted = _read_launches()
+            b_want = 2 if mode == "exact" else 4
+            check(counted["sample_patches"] == b_want + counted.warmup
+                  and counted["fed_cycle"] == 15,
+                  f"{label}: kernel B {b_want} launches a step on its "
+                  f"device counter ({counted}, {counted.warmup} in ladder "
+                  f"warm-ups); the profiler's device events by name "
+                  f"{events} (logged, not held: its trace misattributes "
+                  "CUDA-graph kernels between sessions)")
+            twin = kernel_b_against_twin(torch, lambda: orient_describe(
+                kps, packed, level_hw, rung, akaze, grids), label)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_bytes = torch.cuda.memory_allocated()
+            orient_describe(kps, packed, level_hw, cap, akaze, grids)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_bytes
+            # Device times from CUDA events, not the profiler (whose trace
+            # misattributes CUDA-graph kernels between sessions): the eager
+            # stage and the copies and clones as replays of a CUDA graph of
+            # their own, the ladder's call back to back (device-bound).
+            ms = {n: graph_ms(torch, lambda n=n: orient_describe(
+                kps, packed, level_hw, n, akaze, grids), reps=2)
+                  for n in (cap, rung, live)}
+            fields = [kps.xy, kps.size, kps.class_id, kps.octave, kps.valid,
+                      packed, level_hw, *(grids or ())]
+            call_ms = cuda_ms(torch, lambda: adaptive_orient_describe(
+                kps, packed, level_hw, akaze, grids), reps=10)
+            copy_ms = graph_ms(torch, lambda: [
+                s.copy_(t) for s, t in zip(graph.static, fields)], reps=5)
+            clone_ms = graph_ms(torch, lambda: (graph.angle.clone(),
+                                                graph.desc.clone()), reps=5)
+            copy_mb = sum(t.numel() * t.element_size() for t in fields) / 1e6
+            first_what = (
+                f"warm-up, capture, launch: warm-up {graph.warmup_s:.3f} s, "
+                f"{graph.warmup_launches} kernel-B launches; "
+                f"capture {graph.capture_s:.3f} s" if captured
+                else "its key's graph was cached")
+            log(f"ladder, {label}: live {live} of {cap}, rung {host} ({rung} "
+                f"slots of {buckets}) on the device; first call "
+                f"{first_s:.3f} s ({first_what}); pool "
+                f"{graph.pool_bytes / 2**20:.1f} MiB beside the eager "
+                f"all-slot stage's peak {peak / 2**20:.1f} MiB "
+                f"({graph.pool_bytes / peak:.2f}x); stage device ms "
+                f"{ms[cap]:.4f} at capacity, {ms[rung]:.4f} at the rung, "
+                f"{ms[live]:.4f} on the live prefix; the graph's call "
+                f"{call_ms:.4f} ms back to back (static copies "
+                f"{copy_ms:.4f} ms for {copy_mb:.1f} MB, output clones "
+                f"{clone_ms:.4f} ms); "
+                f"kernel B at K = {x.shape[0] * rung}, S = {twin['shapes_S']}")
+            out[label] = {
+                "live": live, "capacity": cap, "rung": host,
+                "rung_slots": rung, "K": x.shape[0] * rung,
+                "first_call_s": first_s, "captured": captured,
+                "warmup_s": graph.warmup_s,
+                "capture_s": graph.capture_s,
+                "warmup_launches": graph.warmup_launches,
+                "pool_mib": graph.pool_bytes / 2**20,
+                "eager_peak_mib": peak / 2**20,
+                "capacity_ms": ms[cap], "rung_ms": ms[rung],
+                "live_ms": ms[live], "graph_call_ms": call_ms,
+                "copy_ms": copy_ms, "copy_mb": copy_mb,
+                "clone_ms": clone_ms, "kernel_b_events": events,
+                "kernel_b_on_device": counted["sample_patches"],
+                "kernel_b_S": twin["shapes_S"]}
+        check(chosen[mode] == {"first", "middle", "last"}, f"{mode}: the "
+              f"device chose the first, a middle and the last rung "
+              f"({sorted(chosen[mode])})")
+    n_graphs = ladder.clear_ladder_graphs()
+    secs = time.perf_counter() - t_phase
+    log(f"ladder phase: {secs:.1f} s; {n_graphs} cached graphs cleared")
+    return {"seconds": secs, "cases": out}
+
+
 # ---- slice 4: a feature DB built on the card --------------------------------
 
 MOSAIC_N = 8192
@@ -1652,11 +1945,24 @@ def _rows_per_lod(store):
                        minlength=max(lod_of.values()) + 1).tolist()
 
 
+def _same_store(a, b):
+    """Two in-memory FeatureStores: the same rows, every column and the
+    descriptors, bit for bit."""
+    return (np.array_equal(a._desc, b._desc) and set(a._kp) == set(b._kp)
+            and all(np.array_equal(a._kp[k], b._kp[k]) for k in a._kp))
+
+
 def build_phase(torch, dev, root, image):
     """preprocess of the 8192² mosaic read lazily from its GeoTIFF members,
     the default PipelineConfig and tile_batch 8: 6 LoDs, 1,365 tiles of
     256². Kernel A 15 and kernel B 2 launches per tile batch, none of
-    kernel 4. Returns the store, the dataset and the build's numbers."""
+    kernel 4. The build runs four times, paired: adaptive_buckets=1 (every
+    slot), the ladder (the phase's build), the ladder, every slot; the
+    stores' rows equal bit for bit, and the times are a record beside the
+    card's name and power limit. Returns the store, the dataset and the
+    build's numbers."""
+    import dataclasses
+
     from cubesat_apds_tpu_torch.core.config import PipelineConfig
     from cubesat_apds_tpu_torch.io.mosaic import MosaicDataset
     from cubesat_apds_tpu_torch.io.tiff import LazyGeoRaster
@@ -1672,16 +1978,38 @@ def build_phase(torch, dev, root, image):
     check(all(isinstance(m, LazyGeoRaster) for m in ds.members),
           "mosaic members open lazily (native windowed decode)")
     config = PipelineConfig()
-    torch.cuda.synchronize()
+    every_slot = dataclasses.replace(config, akaze=dataclasses.replace(
+        config.akaze, adaptive_buckets=1))
+
+    def build(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = preprocess(ds, config=cfg, tile_batch=BUILD_BATCH,
+                         elevation_path=elev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # A paired record, every slot / ladder / ladder / every slot; the
+    # first ladder build is the phase's build.
+    (flat_store, _), flat_s = build(every_slot)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    t0 = time.perf_counter()
-    store, stats = preprocess(ds, config=config, tile_batch=BUILD_BATCH,
-                              elevation_path=elev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    (store, stats), secs = build(config)
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
+    (store2, _), secs2 = build(config)
+    (flat_store2, _), flat_s2 = build(every_slot)
+    log(f"paired build, {card_line()}: every slot (adaptive_buckets=1) "
+        f"{flat_s:.3f} s, ladder {secs:.3f} s, ladder {secs2:.3f} s, every "
+        f"slot {flat_s2:.3f} s; medians every slot "
+        f"{np.median([flat_s, flat_s2]):.3f} s, ladder "
+        f"{np.median([secs, secs2]):.3f} s "
+        f"({np.median([flat_s, flat_s2]) / np.median([secs, secs2]):.3f}x)")
+    check(all(_same_store(store, other)
+              for other in (flat_store, store2, flat_store2)),
+          "paired build: the ladder's store rows equal every slot's bit "
+          "for bit")
+    del flat_store, store2, flat_store2
     grid = lod_tile_grid(MOSAIC_N, MOSAIC_N, stats.lods)
     batches = sum(-(-len(g[4]) * len(g[5]) // BUILD_BATCH) for g in grid)
     per_lod = _rows_per_lod(store)
@@ -1695,11 +2023,15 @@ def build_phase(torch, dev, root, image):
           and [len(g[4]) * len(g[5]) for g in grid]
           == [1024, 256, 64, 16, 4, 1], "6 LoDs, 1,365 tiles of 256²")
     check(launches == {"fed_cycle": 15 * batches,
-                       "sample_patches": 2 * batches, "knn2_hamming": 0},
-          "15 kernel-A and 2 kernel-B launches per tile batch, no kNN-2")
+                       "sample_patches": 2 * batches + launches.warmup,
+                       "knn2_hamming": 0},
+          "15 kernel-A and 2 kernel-B launches per tile batch, no kNN-2 "
+          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
     check(store._elevation is not None and 2 in store._geotransforms,
           "the store holds the elevation raster and its geotransform")
     return store, ds, {"seconds": secs, "tiles": stats.tiles,
+                       "paired_s": {"every slot": [flat_s, flat_s2],
+                                    "ladder": [secs, secs2]},
                        "tiles_per_s": stats.tiles / secs,
                        "keypoints": stats.keypoints,
                        "keypoints_per_lod": per_lod,
@@ -1984,8 +2316,9 @@ def tiled_phase(torch, dev, terrain, image):
     log(f"tiled 8192² at capacity {TILED_CAP}: {n} keypoints in "
         f"{secs:.3f} s; launches {launches}")
     check(launches["fed_cycle"] == 15 * 81
-          and launches["sample_patches"] == 2 * 81,
-          "81 tiles: 15 kernel-A and 2 kernel-B launches each")
+          and launches["sample_patches"] == 2 * 81 + launches.warmup,
+          "81 tiles: 15 kernel-A and 2 kernel-B launches each "
+          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
     check(0 < n <= TILED_CAP and v[:n].all() and not v[n:].any(),
           "count within capacity, a valid prefix")
     check(bool((np.diff(resp) <= 0).all()), "response order holds")
@@ -2047,11 +2380,12 @@ def tiled_phase(torch, dev, terrain, image):
             "sweep_ms": sweep}
 
 
-def build_kernel_phase(torch, dev):
+def build_kernel_phase(torch, dev, k_rung):
     """Kernels A and B against their twins at the build path's shapes:
     kernel A at every level of a 256² tile batch of 8 and of a 1024² tile
     (the halo-tile form of TPU row 2), kernel B on 8 stacks of 256² at the
-    build's capacity. Bit-exact, with device time."""
+    build batch's rung (the ladder's K a stack) and at the build's
+    capacity. Bit-exact, with device time and the byte bound."""
     from cubesat_apds_tpu_torch.core.config import AkazeConfig
     from cubesat_apds_tpu_torch.ops.features.scale_space import (
         evolution_metadata, fed_tau_by_process_time)
@@ -2081,31 +2415,37 @@ def build_kernel_phase(torch, dev):
             f"device {us / 1e3:.4f} ms per call ({us / batch / 1e3:.4f} ms "
             f"per tile)")
         out[f"{size}_b{batch}_device_ms"] = us / 1e3
-    L, H, K = 16, 256, cfg.capacity
+    L, H = 16, 256
     stacks = torch.from_numpy(rng.standard_normal(
         (BUILD_BATCH, L, H, H, 4)).astype(np.float32)).to(dev)
     stacks[..., 3] = 0
     stacks = stacks.to(torch.bfloat16)
     level_hw = torch.tensor([[H >> (i // 4), H >> (i // 4)] for i in range(L)],
                             dtype=torch.int32, device=dev)
-    lvl = torch.from_numpy(rng.integers(0, L, (BUILD_BATCH, K))).to(dev)
-    for S in (109, 441):
-        iy = torch.from_numpy(rng.integers(-8, H + 8, (BUILD_BATCH * K, S))
-                              .astype(np.int32)).to(dev)
-        ix = torch.from_numpy(rng.integers(-8, H + 8, (BUILD_BATCH * K, S))
-                              .astype(np.int32)).to(dev)
-        fn = sample_kernel.patch_sampler(stacks, level_hw, lvl)
-        got = fn(iy, ix)
-        same = all(torch.equal(
-            got[b * K:(b + 1) * K], sample_kernel.sample_patches_plain(
-                stacks[b], level_hw, lvl[b], iy[b * K:(b + 1) * K],
-                ix[b * K:(b + 1) * K])) for b in range(BUILD_BATCH))
-        check(same, f"kernel B on {BUILD_BATCH} stacks of 256², K={K} a "
-              f"stack, S={S}, bit-exact")
-        ms = graph_ms(torch, lambda: fn(iy, ix))
-        log(f"kernel B, {BUILD_BATCH} x K={K} x S={S} in one launch: device "
-            f"{ms:.4f} ms")
-        out[f"B_S{S}_device_ms"] = ms
+    # The build batch's rung (the ladder's K a stack), then the capacity.
+    for K, at in ((k_rung, ""), (cfg.capacity, "capacity_")):
+        lvl = torch.from_numpy(rng.integers(0, L, (BUILD_BATCH, K))).to(dev)
+        for S in (109, 441):
+            iy = torch.from_numpy(rng.integers(
+                -8, H + 8, (BUILD_BATCH * K, S)).astype(np.int32)).to(dev)
+            ix = torch.from_numpy(rng.integers(
+                -8, H + 8, (BUILD_BATCH * K, S)).astype(np.int32)).to(dev)
+            fn = sample_kernel.patch_sampler(stacks, level_hw, lvl)
+            got = fn(iy, ix)
+            same = all(torch.equal(
+                got[b * K:(b + 1) * K], sample_kernel.sample_patches_plain(
+                    stacks[b], level_hw, lvl[b], iy[b * K:(b + 1) * K],
+                    ix[b * K:(b + 1) * K])) for b in range(BUILD_BATCH))
+            check(same, f"kernel B on {BUILD_BATCH} stacks of 256², K={K} "
+                  f"a stack, S={S}, bit-exact")
+            ms = graph_ms(torch, lambda: fn(iy, ix))
+            log(f"kernel B, {BUILD_BATCH} x K={K} x S={S} in one launch: "
+                f"device {ms:.4f} ms")
+            out[f"B_{at}S{S}_device_ms"] = ms
+        # Per sample 32 B (iy, ix, one texel read, the result written).
+        out[f"B_{at}bound_ms"] = (BUILD_BATCH * K * (109 + 441) * 32
+                                  / HBM_BYTES_PER_S * 1e3)
+        out[f"B_{at}K"] = BUILD_BATCH * K
     return out
 
 
@@ -2158,6 +2498,9 @@ def accuracy_phase(torch, dev):
     build_s = sum(b[1][0] - b[0][0] for b in builds)
     build_l = {k: sum(b[1][1][k] - b[0][1][k] for b in builds) for k in total}
     frame_l = {k: total[k] - build_l[k] for k in total}
+    # Kernel B's launches in the ladder warm-ups of the builds and frames.
+    build_w = sum(b[1][1].warmup - b[0][1].warmup for b in builds)
+    frame_w = total.warmup - build_w
     per_frame = {k: v / n_frames for k, v in frame_l.items()}
     per_build = {k: v / len(builds) for k, v in build_l.items()}
     frames_s = seconds - build_s
@@ -2166,12 +2509,15 @@ def accuracy_phase(torch, dev):
         f"{seconds:.2f} s; builds {build_s:.2f} s; frames (render + "
         f"localize) {frames_s:.2f} s = {n_frames / frames_s:.3f} frames/s")
     log(f"accuracy launches a frame {per_frame}, a build (one 1024² LoD-0 "
-        f"tile) {per_build}")
-    check(per_frame["fed_cycle"] == 15 and per_frame["sample_patches"] == 2
+        f"tile) {per_build}; kernel-B launches in ladder warm-ups: "
+        f"{frame_w} in the frames, {build_w} in the builds")
+    check(per_frame["fed_cycle"] == 15
+          and frame_l["sample_patches"] == 2 * n_frames + frame_w
           and per_frame["knn2_hamming"] == 0,
           "every accuracy frame launched kernel A 15 times and kernel B "
           "twice (dense match: no kernel 4)")
-    check(per_build["fed_cycle"] == 15 and per_build["sample_patches"] == 2,
+    check(per_build["fed_cycle"] == 15
+          and build_l["sample_patches"] == 2 * len(builds) + build_w,
           "every accuracy DB build launched kernel A 15 times (its 1024² "
           "tile) and kernel B twice")
 
@@ -2532,10 +2878,11 @@ def mesh_serve(torch, dev, loc, pool, config):
     torch.cuda.synchronize()
     launches = _read_launches()
     log(f"serve step dp=2 x tp=2, batch {len(pool)}: launches {launches}")
-    check(launches == {"fed_cycle": 30, "sample_patches": 4,
+    check(launches == {"fed_cycle": 30, "sample_patches": 4 + launches.warmup,
                        "knn2_hamming": 4},
           "serve step: kernel A 15 and B 2 per dp row, kernel 4 once per "
-          "shard per row")
+          f"shard per row ({launches.warmup} kernel-B launches in ladder "
+          "warm-ups)")
     got = _pack_outputs(homog, n_match, n_kp, pose)
     lb = len(pool) // 2
     same, agree = [], []
@@ -2602,10 +2949,12 @@ def mesh_stream(torch, dev, ctx, config):
 
     check([r.frame_id for r in results] == list(range(len(frames))),
           f"mesh stream: {len(frames)} frames back, in order")
-    check(launches == {"fed_cycle": 30 * steps, "sample_patches": 4 * steps,
+    check(launches == {"fed_cycle": 30 * steps,
+                       "sample_patches": 4 * steps + launches.warmup,
                        "knn2_hamming": 4 * steps},
           f"mesh stream: kernel A 30, B 4 and kernel 4 4 launches a batch "
-          f"({launches} for {steps} batches)")
+          f"({launches} for {steps} batches; {launches.warmup} kernel-B "
+          "launches in ladder warm-ups)")
     same = [np.array_equal(packed(r), packed(w))
             for r, w in zip(results, ctx["row_results"])]
     check(all(same), f"mesh stream: every frame equals the single-device "
@@ -2664,9 +3013,11 @@ def mesh_preprocess(torch, dev, image):
         f"tiles in {batches} batches, {stats.keypoints} keypoints in "
         f"{secs:.2f} s; launches {launches}")
     check(launches == {"fed_cycle": 30 * batches,
-                       "sample_patches": 4 * batches, "knn2_hamming": 0},
+                       "sample_patches": 4 * batches + launches.warmup,
+                       "knn2_hamming": 0},
           "preprocess(mesh=dp 2): kernel A 15 and B 2 launches per dp row "
-          "of each tile batch")
+          f"of each tile batch ({launches.warmup} kernel-B launches in "
+          "ladder warm-ups)")
     check(stats.keypoints == ref_stats.keypoints > 0 and same,
           "preprocess(mesh=dp 2): the store equals the single-device "
           "build bit for bit")
@@ -2858,11 +3209,7 @@ def kernel_b_against_twin(torch, run, label):
     orig = sk.sample_patches_cuda
 
     def recorded(*args):
-        sk.sample_patches_cuda = orig       # its launch counter lives there
-        try:
-            out = orig(*args)
-        finally:
-            sk.sample_patches_cuda = recorded
+        out = orig(*args)
         calls.append((args, out))
         return out
 
@@ -2927,10 +3274,12 @@ def modes_features(torch, dev):
                   f"keypoints, angles and descriptors bit for bit "
                   f"({int(f.keypoints.valid.sum())} keypoints; CPU "
                   f"{cpu_s:.1f} s)")
-            check(launches == {"fed_cycle": 15, "sample_patches": 4,
+            check(launches == {"fed_cycle": 15,
+                               "sample_patches": 4 + launches.warmup,
                                "knn2_hamming": 0},
                   f"{label}: kernel A 15 and kernel B 4 launches a frame "
-                  "(orientation, then one per MLDB grid)")
+                  "(orientation, then one per MLDB grid; "
+                  f"{launches.warmup} in ladder warm-ups)")
         log(f"{label}: launches {launches}; orientation + descriptors "
             f"{stage_ms:.4f} ms device at capacity {akaze.capacity}")
         out[label] = entry
@@ -3015,10 +3364,11 @@ def modes_accuracy(torch, dev):
                   f"{agg['att_med']} deg, position {agg['pos_med']} m, "
                   f"footprint {agg['fp_med']} m within the bounds {gate}")
     check(launches == {"fed_cycle": 15 * (frames + 2),
-                       "sample_patches": 4 * (frames + 2),
+                       "sample_patches": 4 * (frames + 2) + launches.warmup,
                        "knn2_hamming": 0},
           f"modes accuracy: kernel A 15 and B 4 launches in each of the "
-          f"{frames} frames and 2 builds ({launches})")
+          f"{frames} frames and 2 builds ({launches}; {launches.warmup} "
+          "kernel-B launches in ladder warm-ups)")
     log(f"modes accuracy: {frames} frames and 2 builds in {secs:.2f} s")
 
     mosaic, plane, ds = A.build_world(2026, device=dev)
@@ -3170,17 +3520,21 @@ def cli_build(torch, dev, root, crop):
           f"preprocess: the CLI's store ({ref_stats.keypoints} keypoints, "
           f"{ref_stats.tiles} tiles) equals the in-process build bit for bit")
     check(launches == {"fed_cycle": 15 * batches,
-                       "sample_patches": 2 * batches, "knn2_hamming": 0},
+                       "sample_patches": 2 * batches + launches.warmup,
+                       "knn2_hamming": 0},
           f"preprocess: kernel A 15 and B 2 launches in each of {batches} "
-          "tile batches")
+          f"tile batches ({launches.warmup} kernel-B launches in ladder "
+          "warm-ups)")
     store2 = os.path.join(root, "store_c2")
     _, launches2, secs2 = _cli(torch, ["--device", "cuda:0,cuda:0"] + [
         store2 if a == store else a for a in argv] + ["-c", "2"])
     check(_same_store_rows(store2, ref_path),
           "preprocess -c 2: the same rows as the in-process build")
     check(launches2 == {"fed_cycle": 30 * batches,
-                        "sample_patches": 4 * batches, "knn2_hamming": 0},
-          "preprocess -c 2: kernel A 30 and B 4 launches a tile batch")
+                        "sample_patches": 4 * batches + launches2.warmup,
+                        "knn2_hamming": 0},
+          "preprocess -c 2: kernel A 30 and B 4 launches a tile batch "
+          f"({launches2.warmup} kernel-B launches in ladder warm-ups)")
     return store, ds, {"preprocess": (launches, secs),
                        "preprocess -c 2": (launches2, secs2)}
 
@@ -3227,11 +3581,12 @@ def cli_localize(torch, dev, root, store, ds):
           and got["rvec"] == res.pose.rvec.cpu().numpy().tolist(),
           "localize: keypoints, matches, inliers, H and pose equal "
           "Localizer.localize's bit for bit")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2,
+    check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
                        "knn2_hamming": int(rows > PipelineConfig()
                                            .match.db_block)},
           f"localize: kernel A 15, B 2 launches; kNN-2 where LoD 0's {rows} "
-          "rows pass db_block")
+          f"rows pass db_block ({launches.warmup} kernel-B launches in "
+          "ladder warm-ups)")
     if got["pose_ok"]:
         check(len(got["camera_position"]) == 3
               and len(got["attitude_quat_wxyz"]) == 4,
@@ -3325,9 +3680,10 @@ def cli_stream(torch, dev, root):
           "in-process mesh stream's")
     check(launches["knn2_hamming"] == 4 * batches
           and launches["fed_cycle"] == 30 * batches
-          and launches["sample_patches"] == 4 * batches,
+          and launches["sample_patches"] == 4 * batches + launches.warmup,
           f"stream --mesh 2x2: kNN-2 4, kernel A 30, B 4 launches in each of "
-          f"{batches} batches (one kNN-2 a shard)")
+          f"{batches} batches (one kNN-2 a shard; {launches.warmup} "
+          "kernel-B launches in ladder warm-ups)")
     log(f"stream --mesh 2x2: {summary}")
     out_p, l_p, secs_p = _cli(torch, ["--device", "cuda:0"] + argv
                               + ["--pruned"])
@@ -3367,9 +3723,11 @@ def cli_match(torch, root):
               and card["viz"] == viz and os.path.exists(viz),
               f"{label}: keypoints {card['keypoints']}, matches "
               f"{card['matches']} on the card = on the CPU; -o written")
-        check(launches == {"fed_cycle": 30, "sample_patches": 4,
+        check(launches == {"fed_cycle": 30,
+                           "sample_patches": 4 + launches.warmup,
                            "knn2_hamming": 0},
-              f"{label}: kernel A 15 and B 2 launches an image")
+              f"{label}: kernel A 15 and B 2 launches an image "
+              f"({launches.warmup} kernel-B launches in ladder warm-ups)")
         runs[label] = (launches, secs)
     return runs
 
@@ -3472,11 +3830,14 @@ def cli_phase(torch, dev, card, crop):
         check(line["value"] > 0
               and torch.cuda.get_device_name(0) in line["device"]
               and bench_launches == {"fed_cycle": 15 * 34,
-                                     "sample_patches": 2 * 34,
+                                     "sample_patches": 2 * 34
+                                     + bench_launches.warmup,
                                      "knn2_hamming": 0},
               f"bench.run(iters=10, reps=3): {line['value']} frames/s on "
               f"{line['device']}; kernels A and B in each of 34 "
-              "extractions (the DB's, 3 warm-up and 30 timed steps)")
+              "extractions (the DB's, 3 warm-up and 30 timed steps; "
+              f"{bench_launches.warmup} kernel-B launches in ladder "
+              "warm-ups)")
         launches["bench"] = (bench_launches, None)
 
         repo = os.path.dirname(os.path.abspath(__file__))
@@ -3560,6 +3921,7 @@ def main(argv=None):
               "run from the repository root", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     try:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
@@ -3581,10 +3943,12 @@ def main(argv=None):
         image = build_image(terrain)
         log(f"terrain and build image {MOSAIC_N}² from seed {SEED} in "
             f"{time.perf_counter() - t0:.1f} s")
-        kernels = kernel_phase(torch, dev) + [knn_phase(torch, dev)]
+        rungs = path_rungs(torch, dev, image)
+        kernels = kernel_phase(torch, dev, rungs["frame"]) + [
+            knn_phase(torch, dev)]
         kernels[-1]["batch_step_shape"] = knn_batch_phase(torch, dev)
         a_batch_ms, b_batch_ms = batch_kernel_phase(torch, dev)
-        build_kernels = build_kernel_phase(torch, dev)
+        build_kernels = build_kernel_phase(torch, dev, rungs["build"])
         launches, step_s, loc10k, frame_t = slice_phase(torch, dev,
                                                         args.profile)
         big_launches, big_s, loc, big_res, big_frame = bigdb_phase(
@@ -3608,6 +3972,7 @@ def main(argv=None):
             del store, ds
         tiled = tiled_phase(torch, dev, terrain, image)
         part_a = sync_phase(torch, dev, loc10k, frame_t, image)
+        ladder_run = ladder_phase(torch, dev, image)
         cli_crop = image[:CLI_CROP, :CLI_CROP].copy()
         del loc10k, image, terrain
         accuracy = accuracy_phase(torch, dev)
@@ -3652,8 +4017,22 @@ def main(argv=None):
         kernels[1]["batch8_device_ms_per_frame"] = b_batch_ms
         kernels[0]["build_tile_b8_device_ms"] = build_kernels["256_b8_device_ms"]
         kernels[0]["tiled_1024_device_ms"] = build_kernels["1024_b1_device_ms"]
-        kernels[1]["build_batch_device_ms"] = (build_kernels["B_S109_device_ms"]
-                                               + build_kernels["B_S441_device_ms"])
+        kernels[1]["build_batch"] = {
+            "K": build_kernels["B_K"],
+            "device_ms": (build_kernels["B_S109_device_ms"]
+                          + build_kernels["B_S441_device_ms"]),
+            "bound_ms": build_kernels["B_bound_ms"],
+            "at_capacity": {
+                "K": build_kernels["B_capacity_K"],
+                "device_ms": (build_kernels["B_capacity_S109_device_ms"]
+                              + build_kernels["B_capacity_S441_device_ms"]),
+                "bound_ms": build_kernels["B_capacity_bound_ms"]}}
+        kernels[1]["ladder"] = {
+            label: {k: r[k] for k in ("K", "rung", "rung_slots", "live",
+                                      "capacity_ms", "rung_ms", "live_ms",
+                                      "graph_call_ms", "pool_mib",
+                                      "eager_peak_mib")}
+            for label, r in ladder_run["cases"].items()}
         log(f"card: {card} — slice {1.0 / step_s:.2f} frames/s, big DB "
             f"{1.0 / big_s:.2f} frames/s, pruned {1.0 / pruned_s:.2f} "
             f"frames/s; streams: " + ", ".join(
@@ -3691,6 +4070,20 @@ def main(argv=None):
             "step ms " + ", ".join(
                 f"{k} {v['step_ms']:.2f} (Jaccard {v['jaccard_vs_exact']:.3f})"
                 for k, v in modes["slice"].items()))
+        paired = db_build["paired_s"]
+        log(f"card: {card} — ladder phase {ladder_run['seconds']:.1f} s: "
+            + ", ".join(f"{label} rung {r['rung']} ({r['rung_slots']} "
+                        f"slots, {r['live']} live), stage "
+                        f"{r['capacity_ms']:.3f} / {r['rung_ms']:.3f} / "
+                        f"{r['live_ms']:.3f} ms "
+                        f"(capacity / rung / live), pool {r['pool_mib']:.0f}"
+                        f" MiB (eager peak {r['eager_peak_mib']:.0f})"
+                        for label, r in ladder_run["cases"].items())
+            + f"; paired build s: every slot {paired['every slot']}, "
+            f"ladder {paired['ladder']}")
+        log(f"card: {card} — every phase in "
+            f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
+            "included")
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

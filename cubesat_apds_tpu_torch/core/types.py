@@ -50,11 +50,20 @@ def device_const(values, dtype, device) -> torch.Tensor:
     steps' constants are then never copied up again, and a step on the
     card queues no synchronising copy. The cache lives as long as the
     process, so callers pass only small constants of a fixed set (tap
-    tables, level sizes) and never write to the result."""
+    tables, level sizes) and never write to the result. A new constant
+    cannot be uploaded while the current stream captures a CUDA graph (the
+    graph would record a copy from a host buffer that is gone by its
+    replay): that raises, and a warm-up before the capture makes them."""
     arr = np.asarray(values)
     key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype, str(device))
     t = _CONSTS.get(key)
     if t is None:
+        if torch.device(device).type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"device_const: a new {dtype} constant of shape {arr.shape} "
+                "while a CUDA graph is being captured; run the captured "
+                "work once before the capture")
         # From pageable memory a non-blocking copy is staged at once and
         # does not wait on the device.
         t = torch.as_tensor(arr, dtype=dtype).to(device, non_blocking=True)

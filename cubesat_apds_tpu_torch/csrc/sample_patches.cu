@@ -41,7 +41,13 @@ sample_patches_kernel(const uint2* __restrict__ stack,   // [L, Hmax, Wmax] x 4 
                       const int* __restrict__ iy,        // [K, S]
                       const int* __restrict__ ix,        // [K, S]
                       float4* __restrict__ out,          // [K, S]
-                      int n, int S, int L, int Hmax, int Wmax) {
+                      int n, int S, int L, int Hmax, int Wmax,
+                      unsigned long long* __restrict__ launches) {
+    // The device's own count of launches, eager or inside a CUDA graph
+    // (a profiler's trace does not attribute graph kernels reliably).
+    if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+        atomicAdd(launches, 1ULL);
+    }
     const int i = blockIdx.x * SAMPLE_THREADS + threadIdx.x;
     if (i >= n) return;
     // Level and level size clamped into the stack, so no input can make
@@ -60,11 +66,12 @@ sample_patches_kernel(const uint2* __restrict__ stack,   // [L, Hmax, Wmax] x 4 
 }
 
 // Launches one thread per sample on `stream`; returns cudaGetLastError().
-// K * S must be below 2^31.
+// K * S must be below 2^31. `launches` (a device uint64, or null) gains one
+// for every launch the device runs.
 extern "C" int apds_sample_patches(const void* stack, const int* level_hw,
                                    const int* lvl, const int* iy, const int* ix,
                                    void* out, int K, int S, int L, int Hmax,
-                                   int Wmax, void* stream) {
+                                   int Wmax, void* launches, void* stream) {
     const long long n = (long long)K * S;
     if (K < 1 || S < 1 || L < 1 || Hmax < 1 || Wmax < 1 || n >= (1LL << 31)) {
         return (int)cudaErrorInvalidValue;
@@ -72,6 +79,6 @@ extern "C" int apds_sample_patches(const void* stack, const int* level_hw,
     const int blocks = (int)((n + SAMPLE_THREADS - 1) / SAMPLE_THREADS);
     sample_patches_kernel<<<blocks, SAMPLE_THREADS, 0, (cudaStream_t)stream>>>(
         (const uint2*)stack, level_hw, lvl, iy, ix, (float4*)out, (int)n, S, L,
-        Hmax, Wmax);
+        Hmax, Wmax, (unsigned long long*)launches);
     return (int)cudaGetLastError();
 }

@@ -6,11 +6,14 @@ the batch) → det-Hessian detection → bf16 channel-packed level stacks →
 orientation and MLDB descriptors, both sampled through kernel B on CUDA
 (one launch each for the batch). The approximate descriptor modes
 ("fast", "hybrid") also build three blur-matched stacks, one per MLDB
-grid, and sample each through its own kernel-B launch. On the card the
-per-keypoint stages run on every slot of the capacity, invalid slots
-masked to zeros, so a call reads nothing back to the host; on the CPU
-they run on the live prefix, with the same bits. One image is a batch of
-one.
+grid, and sample each through its own kernel-B launch. The per-keypoint
+stages run on a rung of the capacity ladder (`_bucket_sizes`), the
+smallest prefix that holds the batch's largest live count, as the JAX
+package's `lax.switch` picks it: on the card a CUDA graph picks the rung
+on the device (ops/features/ladder.py), so a call reads nothing back to
+the host; on the CPU the count is read on the host. Invalid slots come
+out as zeros either way, so every rung gives the same bits. One image is
+a batch of one.
 
 `detect_and_compute_tiled` covers images past one scale space with
 overlapping tiles, a global contrast factor and a seam dedup.
@@ -27,6 +30,7 @@ from cubesat_apds_tpu_torch.core.config import AkazeConfig
 from cubesat_apds_tpu_torch.core.types import (
     Features, Keypoints, device_const, select)
 from cubesat_apds_tpu_torch.ops.features.detect import detect_keypoints
+from cubesat_apds_tpu_torch.ops.features.ladder import run_ladder
 from cubesat_apds_tpu_torch.ops.features.mldb import (
     approx_blur_sigmas_fn, approx_mldb_fn, mldb_descriptors)
 from cubesat_apds_tpu_torch.ops.features.orientation import (
@@ -76,6 +80,30 @@ def _grid_stacks(ss, lx, ly, config: AkazeConfig):
     return tuple(grids)
 
 
+def _bucket_sizes(capacity: int, n: int) -> tuple:
+    """Linear capacity ladder: rungs every max(capacity/n, 256) slots,
+    rounded up to a multiple of 128 (smallest first, last == capacity);
+    n <= 1 gives the one rung `capacity`. A copy of the JAX package's
+    ops/features/akaze.py:_bucket_sizes."""
+    if n <= 1:
+        return (capacity,)
+    spacing = max(-(-capacity // n), 256)
+    spacing = -(-spacing // 128) * 128
+    sizes = set(range(spacing, capacity, spacing))
+    sizes.add(capacity)
+    return tuple(sorted(sizes))
+
+
+def rung_index(count, buckets):
+    """The ladder rung that holds `count` live slots: Σ_b (count > b) over
+    every rung but the last, the JAX package's switch index, as int32
+    torch ops on count's device (no host read)."""
+    idx = torch.zeros_like(count, dtype=torch.int32)
+    for b in buckets[:-1]:
+        idx = idx + (count > b).to(torch.int32)
+    return idx
+
+
 def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
                              capacity: int | None = None,
                              kcontrast=None) -> Features:
@@ -85,11 +113,12 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
     `detect_and_compute` on each image alone.
 
     The front end runs on the whole batch (one kernel-A launch per level).
-    The per-keypoint stages run once for the batch (`orient_describe`):
-    on the card on all `capacity` slots of every image, so nothing is
-    read back to the host and the call only queues work on the card; on
-    the CPU on the batch's live prefix (the same bits). The detector's
-    top-K is exact whatever `config.detect_topk` says, and
+    The per-keypoint stages run once for the batch, on the capacity
+    ladder's rung for the batch's largest live count
+    (`adaptive_orient_describe`; at `config.adaptive_buckets` <= 1 on all
+    `capacity` slots): on the card the rung is picked on the device, so
+    nothing is read back to the host and the call only queues work. The
+    detector's top-K is exact whatever `config.detect_topk` says, and
     `config.sampler` is ignored: on CUDA both per-keypoint stages sample
     through kernel B, on CPU through the plain gather.
     `config.descriptor_mode` and `config.orientation_mode` select the
@@ -102,9 +131,8 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
                          f"{tuple(imgs.shape)}")
     kps, packed, level_hw, grids = _front_end(imgs, config, capacity,
                                               kcontrast)
-    n = (capacity if imgs.device.type == "cuda"
-         else int(kps.valid.sum(-1).max()))
-    angle, desc = orient_describe(kps, packed, level_hw, n, config, grids)
+    angle, desc = adaptive_orient_describe(kps, packed, level_hw, config,
+                                           grids)
     kps = Keypoints(xy=kps.xy, size=kps.size, angle=angle,
                     response=kps.response, octave=kps.octave,
                     class_id=kps.class_id, valid=kps.valid)
@@ -123,27 +151,19 @@ def _front_end(imgs, config: AkazeConfig, capacity: int, kcontrast):
     return kps, packed, level_hw, _grid_stacks(ss, lx_list, ly_list, config)
 
 
-def orient_describe(kps: Keypoints, packed, level_hw, n: int,
-                    config: AkazeConfig = AkazeConfig(), grids=None):
+def _stage(xy, size, class_id, octave, valid, packed, level_hw, n: int,
+           config: AkazeConfig, grids):
     """Orientation and MLDB descriptors of the first `n` slots of every
-    image of the batch → (angle [B, capacity], desc [B, capacity, 61]),
-    zero past slot n. Invalid slots come out as zeros from both stages'
-    masks, and the valid keypoints are a response-sorted prefix, so any
-    n at or above the batch's largest live count gives the same bits;
-    `detect_and_compute_batch` runs all `capacity` slots on the card,
-    which needs no host read of the count. In the approximate descriptor modes `grids`
+    image → (angle [B, n], desc [B, n, 61]): the body of each ladder rung.
+    Both stages sample through one `patch_sampler` (kernel B on the card)
+    over the batch's stacks; in the approximate descriptor modes `grids`
     holds `_grid_stacks`' three stacks, each sampled on its own (one
     kernel-B launch a grid on the card)."""
-    bsz, capacity = kps.valid.shape
-    dev = kps.xy.device
-    angle = torch.zeros((bsz, capacity), dtype=torch.float32, device=dev)
-    desc = torch.zeros((bsz, capacity, 61), dtype=torch.uint8, device=dev)
-    if n == 0:
-        return angle, desc
+    bsz = valid.shape[0]
+    lvl = class_id[:, :n].clamp(0, packed.shape[1] - 1)
     xy, size, class_id, octave, valid = (
         t[:, :n].reshape((bsz * n,) + t.shape[2:])
-        for t in (kps.xy, kps.size, kps.class_id, kps.octave, kps.valid))
-    lvl = kps.class_id[:, :n].clamp(0, packed.shape[1] - 1)
+        for t in (xy, size, class_id, octave, valid))
     sample_fn = patch_sampler(packed, level_hw, lvl)
     # Both stages sample through sample_fn, so they get one image's
     # stack only for its shape.
@@ -156,9 +176,56 @@ def orient_describe(kps: Keypoints, packed, level_hw, n: int,
     else:
         d = approx_mldb_fn(config)(grids, level_hw, xy, size, a, class_id,
                                    octave, valid)
-    angle[:, :n] = a.reshape(bsz, n)
-    desc[:, :n] = d.reshape(bsz, n, 61)
+    return a.reshape(bsz, n), d.reshape(bsz, n, 61)
+
+
+def orient_describe(kps: Keypoints, packed, level_hw, n: int,
+                    config: AkazeConfig = AkazeConfig(), grids=None):
+    """Orientation and MLDB descriptors of the first `n` slots of every
+    image of the batch → (angle [B, capacity], desc [B, capacity, 61]),
+    zero past slot n. Invalid slots come out as zeros from both stages'
+    masks, and the valid keypoints are a response-sorted prefix, so any
+    n at or above the batch's largest live count gives the same bits."""
+    bsz, capacity = kps.valid.shape
+    dev = kps.xy.device
+    angle = torch.zeros((bsz, capacity), dtype=torch.float32, device=dev)
+    desc = torch.zeros((bsz, capacity, 61), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return angle, desc
+    angle[:, :n], desc[:, :n] = _stage(
+        kps.xy, kps.size, kps.class_id, kps.octave, kps.valid, packed,
+        level_hw, n, config, grids)
     return angle, desc
+
+
+def adaptive_orient_describe(kps: Keypoints, packed, level_hw,
+                             config: AkazeConfig = AkazeConfig(),
+                             grids=None):
+    """`orient_describe` on the smallest rung of
+    `_bucket_sizes(capacity, config.adaptive_buckets)` that holds the
+    batch's largest live count: the JAX package's
+    `_adaptive_orient_describe_batched` (a batch of one gets its per-image
+    ladder's rung, the same one). On the card the device picks the rung,
+    in a CUDA graph with one switch branch a rung (`ladder.run_ladder`);
+    on the CPU the count is read on the host. One rung
+    (`adaptive_buckets` <= 1) runs every capacity slot, as the JAX
+    package's plain path does."""
+    capacity = kps.valid.shape[1]
+    buckets = _bucket_sizes(capacity, config.adaptive_buckets)
+    if len(buckets) == 1:
+        return orient_describe(kps, packed, level_hw, capacity, config,
+                               grids)
+    dev = packed.device
+    if dev.type == "cuda":
+        return run_ladder(_stage, rung_index,
+                          [kps.xy, kps.size, kps.class_id, kps.octave,
+                           kps.valid, packed, level_hw, *(grids or ())],
+                          config, buckets)
+    if dev.type != "cpu":
+        raise ValueError(f"adaptive_orient_describe: unsupported device "
+                         f"{dev}")
+    n = buckets[int(rung_index(kps.valid.sum(-1).max(), buckets))]
+    return orient_describe(kps, packed, level_hw, n, config, grids)
 
 
 def detect_and_compute(img, config: AkazeConfig = AkazeConfig(),

@@ -6,10 +6,11 @@ and scales the contrast factor by 0.75; per level, Lsmooth = G(σ=1)·Lt,
 conductance g = PM-G2(∇Lsmooth, k) and one FED cycle (kernel A on CUDA)
 with the τ schedule of `fed_tau_by_process_time`. The step `nld_step`
 and its plain cycle `fed_cycle` live beside the kernel, in
-ops/kernels/diffusion.py. A batch [B, H, W] builds every image's scale
-space at once (one kernel-A launch per level for the batch); each image
-keeps its own contrast factor, and every operation acts on each image
-alone, so an image gives the same bits in a batch as alone.
+ops/kernels/diffusion.py, and are imported here too. A batch [B, H, W]
+builds every image's scale space at once (one kernel-A launch per level
+for the batch); each image keeps its own contrast factor, and every
+operation acts on each image alone, so an image gives the same bits in a
+batch as alone.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ import torch
 
 from cubesat_apds_tpu_torch.core.config import AkazeConfig
 from cubesat_apds_tpu_torch.core.types import device_const
-from cubesat_apds_tpu_torch.ops.kernels.diffusion import fed_cycle_fused
+# nld_step and fed_cycle also stand here, at the JAX package's module
+# path (its ops/features/scale_space.py defines them).
+from cubesat_apds_tpu_torch.ops.kernels.diffusion import (  # noqa: F401
+    fed_cycle, fed_cycle_fused, nld_step)
 from cubesat_apds_tpu_torch.ops.resample import (
     gaussian_blur, half_sample, separable_conv2d)
 

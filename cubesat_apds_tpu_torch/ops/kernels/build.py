@@ -37,13 +37,22 @@ _SIGNATURES = {
                        _I, _P),
     # cluster, threads, cells per thread, smem_bytes, info (int32 [3], host)
     "apds_fed_cycle_info": (_I, _I, _I, _I, _P),
-    # stack, level_hw, lvl, iy, ix, out, K, S, L, Hmax, Wmax, stream
-    "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # stack, level_hw, lvl, iy, ix, out, K, S, L, Hmax, Wmax, launch
+    # counter (device int64, or null), stream
+    "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P),
     # q_words, db_words, vpop, partial, d0, d1, i0, Q, M, n_split, chunk,
     # stream
     "apds_knn2_hamming": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # info (int32 [8], host)
     "apds_knn2_info": (_P,),
+    # device, head graph, body graphs (host array), n, idx, graph and exec
+    # out (host array of 2)
+    "apds_ladder_graph": (_I, _P, _P, _I, _P, _P),
+    # exec, stream
+    "apds_graph_launch": (_P, _P),
+    # graph, exec
+    "apds_graph_destroy": (_P, _P),
 }
 
 

@@ -3,8 +3,10 @@ utils/profiling.py).
 
 `StageTimes` collects wall-clock samples per named stage for the stream's
 cadence report (same report format as the JAX package's). `time_cuda`
-times a call on the card with CUDA events, `device_trace` records a
-torch.profiler trace (CPU and CUDA activity) into a Chrome trace file.
+times a call on the card with CUDA events, `time_jitted` (the JAX
+package's name and arguments) a call on any device by the host clock,
+and `device_trace` records a torch.profiler trace (CPU and CUDA
+activity) into a Chrome trace file.
 """
 
 from __future__ import annotations
@@ -93,3 +95,33 @@ def time_cuda(fn, *args, iters: int = 20, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+def _wait_for(out) -> None:
+    """Wait for the cards that hold the tensors of `out` (a tensor, or a
+    tuple or tensor dataclass of them, nested) to finish their work."""
+    import torch
+
+    from cubesat_apds_tpu_torch.core.types import _map_tensors
+
+    cards = set()
+    _map_tensors(out, lambda t: cards.add(t.device)
+                 if t.device.type == "cuda" else None)
+    for dev in cards:
+        torch.cuda.synchronize(dev)
+
+
+def time_jitted(fn, *args, iters: int = 20, warmup: int = 1) -> float:
+    """Steady-state seconds per call of fn(*args) by the host clock,
+    waiting for the result's devices after the warm-up calls and after
+    the timed ones (the JAX package's time_jitted, which blocks on the
+    result's leaves)."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _wait_for(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _wait_for(out)
+    return (time.perf_counter() - t0) / iters

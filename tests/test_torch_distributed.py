@@ -1,6 +1,8 @@
 """The port's mesh across processes (parallel.mesh.initialize_distributed,
 gloo): two real processes, each bringing two `cpu` slots, form a global
-mesh of four slots. The sharded kNN-2 (dense and the kernel's twin, the
+mesh of four slots. The library path and the command line's
+`stream --distributed` and `preprocess --distributed` are held to the
+single-process results. The sharded kNN-2 (dense and the kernel's twin, the
 DB's columns split over both processes) and the serve step (dp=2 × tp=2:
 each process a row; dp=1 × tp=4: the row's merge across both) must give
 every process exactly the single-process results. Each worker has a free
@@ -197,3 +199,124 @@ def test_initialize_distributed_partial_config_rejected(monkeypatch):
         initialize_distributed()
     with pytest.raises(ValueError, match="APDS_PROCESS_ID"):
         initialize_distributed(coordinator="127.0.0.1:1")
+
+
+# ---- the command line across two processes --------------------------------
+#
+# The counterparts of tests/test_distributed.py's CLI tests: the real
+# `stream --distributed` and `preprocess --distributed` mains as two OS
+# processes of two `cpu` slots each, held to a single-process run.
+
+_CLI_TIMEOUT_S = 120
+
+
+def _cli_scene(tmp_path):
+    """tests/test_distributed.py's _cli_scene through the port: a 128²
+    GeoTIFF, a store built by the port's preprocess CLI, 8 rolled frame
+    PNGs."""
+    from PIL import Image
+
+    from cubesat_apds_tpu_torch.cli import main
+    from cubesat_apds_tpu_torch.io.tiff import write_geotiff
+
+    rng = np.random.default_rng(21)
+    img = np.zeros((128, 128), np.float32)
+    for _ in range(25):
+        cy, cx = rng.integers(5, 100, 2)
+        s = int(rng.integers(8, 20))
+        img[cy:cy + s, cx:cx + s] = rng.uniform(0.3, 1.0)
+    tiles = tmp_path / "tiles"
+    tiles.mkdir()
+    rgb8 = (np.stack([img] * 3, -1) * 255).astype(np.uint8)
+    write_geotiff(str(tiles / "t.tif"), rgb8,
+                  [10.0, 0.001, 0, 56.0, 0, -0.001])
+    store = str(tmp_path / "store")
+    assert main(["--device", "cpu", "preprocess", "--dataset", str(tiles),
+                 "--store", store, "--lod", "1"]) == 0
+    frames = tmp_path / "frames"
+    frames.mkdir()
+    names = []
+    for i in range(8):
+        p = str(frames / f"f{i}.png")
+        Image.fromarray((np.roll(img, i, axis=1) * 255)
+                        .astype(np.uint8)).save(p)
+        names.append(p)
+    return tiles, store, frames, names
+
+
+def _run_cli_pair(argv_of):
+    """`python -m cubesat_apds_tpu_torch.cli <argv_of(pid)>` as processes 0
+    and 1 of a two-process group (a free port, two threads each); a worker
+    past its time limit is killed and fails the test. Returns their
+    stdouts."""
+    port = _free_port()
+    procs = []
+    for pid in range(2):
+        env = {k: v for k, v in os.environ.items() if k not in _ENV}
+        env.update(APDS_COORDINATOR=f"127.0.0.1:{port}",
+                   APDS_NUM_PROCESSES="2", APDS_PROCESS_ID=str(pid),
+                   OMP_NUM_THREADS="2")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "cubesat_apds_tpu_torch.cli",
+             *argv_of(pid)], env=env, cwd=_REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE))
+    outs = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=_CLI_TIMEOUT_S)
+            outs.append((p.returncode, so.decode(), se.decode()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rc, _so, se in outs:
+        assert rc == 0, f"worker failed:\n{se[-4000:]}"
+    return [so for _rc, so, _se in outs]
+
+
+def _frame_records(text):
+    """The per-frame JSON lines of a stream run, without their latency
+    (a wall-clock reading)."""
+    import json
+
+    recs = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    return [{k: v for k, v in r.items() if k != "latency_s"}
+            for r in recs if "frame" in r]
+
+
+def test_two_process_stream_cli(tmp_path, capsys):
+    """`stream --device cpu,cpu --mesh 2x2 --distributed` as two processes
+    (one global mesh of four slots): both print the per-frame JSON lines
+    of a single-process `--device cpu,cpu,cpu,cpu --mesh 2x2` run."""
+    from cubesat_apds_tpu_torch.cli import main
+
+    _tiles, store, frames, names = _cli_scene(tmp_path)
+    args = ["stream", "--store", store, "--frames", str(frames),
+            "--batch", "4", "--mesh", "2x2"]
+    capsys.readouterr()
+    assert main(["--device", "cpu,cpu,cpu,cpu", *args]) == 0
+    ref = _frame_records(capsys.readouterr().out)
+    assert [r["frame"] for r in ref] == names
+    assert any(r["homography_ok"] for r in ref)
+    outs = _run_cli_pair(lambda pid: ["--device", "cpu,cpu", *args,
+                                      "--distributed"])
+    for pid, out in enumerate(outs):
+        assert _frame_records(out) == ref, f"process {pid}"
+
+
+def test_two_process_preprocess_cli(tmp_path):
+    """`preprocess --device cpu,cpu -c 4 --distributed` as two processes:
+    each writes the whole store, row-equal to the single-process -c 1
+    build."""
+    tiles, ref_store, _frames, _names = _cli_scene(tmp_path)
+    stores = [str(tmp_path / f"dstore{pid}") for pid in range(2)]
+    _run_cli_pair(lambda pid: [
+        "--device", "cpu,cpu", "preprocess", "--dataset", str(tiles),
+        "--store", stores[pid], "--lod", "1", "-c", "4", "--distributed"])
+    ref = np.load(os.path.join(ref_store, "keypoints.npz"))
+    for spath in stores:
+        got = np.load(os.path.join(spath, "keypoints.npz"))
+        assert set(got.files) == set(ref.files)
+        for k in ref.files:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)

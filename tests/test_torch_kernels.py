@@ -260,9 +260,9 @@ def test_batched_sample_kernel_matches_twin_on_card(cuda_device):
     lvl = torch.from_numpy(rng.integers(0, L, (B, K))).to(cuda_device)
     iy = torch.from_numpy(rng.integers(-40, 100, (B * K, S))).to(cuda_device)
     ix = torch.from_numpy(rng.integers(-40, 100, (B * K, S))).to(cuda_device)
-    before = tsk.sample_patches_cuda.launches
+    before = tsk.device_launches(cuda_device)
     got = tsk.patch_sampler(stacks, hw, lvl)(iy, ix)
-    assert tsk.sample_patches_cuda.launches == before + 1
+    assert tsk.device_launches(cuda_device) == before + 1
     torch.cuda.synchronize()
     for b in range(B):
         ref = tsk.sample_patches_plain(stacks[b], hw, lvl[b],
@@ -338,3 +338,65 @@ def test_knn2_kernel_matches_twin_on_card(cuda_device):
         for name, g, r in zip(("d0", "d1", "i0"), got, ref):
             assert torch.equal(g, r), (q_n, m, name)
         assert int(got[2][1]) == m - 1 and float(got[0][1]) == 0.0
+
+
+def _boxes(seed, n, boxes):
+    """A frame of `boxes` random bright boxes (tests/test_torch_ladder.py's
+    scene generator)."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((n, n), np.float32)
+    for _ in range(boxes):
+        cy, cx = rng.integers(4, n - 20, 2)
+        s = int(rng.integers(4, 20))
+        img[cy:cy + s, cx:cx + s] = rng.uniform(0.2, 1.0)
+    return img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_ladder_graph_equals_every_slot(cuda_device, mode):
+    """detect_and_compute_batch on the card through the capacity ladder's
+    graph (adaptive_buckets=8) equals the every-slot path
+    (adaptive_buckets=1) bit for bit, for single frames whose counts land
+    on the first, a middle and the last rung of capacity 768 and for the
+    batch of the three; the device's rung is the host formula's; a result
+    the caller holds is unchanged by the next call of the same key; a
+    warmed call does not synchronise; kernel B's wrapper and its device
+    counter count its launches a replay."""
+    from cubesat_apds_tpu_torch.ops.features import akaze as takaze
+    from cubesat_apds_tpu_torch.ops.features import ladder
+
+    kw = {} if mode == "exact" else dict(descriptor_mode="fast",
+                                         orientation_mode="fast")
+    cfg = AkazeConfig(capacity=768, **kw)
+    flat = AkazeConfig(capacity=768, adaptive_buckets=1, **kw)
+    imgs = torch.from_numpy(np.stack([_boxes(11 + i, 256, b) for i, b in
+                                      enumerate((30, 90, 140))]))
+    imgs = imgs.to(cuda_device)
+    buckets = takaze._bucket_sizes(768, 8)
+    ladder.clear_ladder_graphs()
+    for x in (imgs[0:1], imgs[1:2], imgs[2:3], imgs):
+        first = takaze.detect_and_compute_batch(x, cfg)      # captures
+        want = takaze.detect_and_compute_batch(x, flat)
+        held = first.descriptors.clone(), first.keypoints.angle.clone()
+        other = takaze.detect_and_compute_batch(x.flip(-1), cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(first.descriptors, held[0])
+        assert torch.equal(first.keypoints.angle, held[1])
+        assert torch.equal(first.descriptors, want.descriptors)
+        assert torch.equal(first.keypoints.angle, want.keypoints.angle)
+        entry = ladder._GRAPHS.get(ladder._GRAPHS.keys()[-1])
+        count = int(other.keypoints.valid.sum(-1).max())
+        assert entry.last_rung() == int(takaze.rung_index(
+            torch.tensor(count), buckets))
+        on_device = tsk.device_launches(cuda_device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = takaze.detect_and_compute_batch(x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        n_b = 2 if mode == "exact" else 4
+        assert tsk.device_launches(cuda_device) - on_device == n_b
+        assert torch.equal(again.descriptors, want.descriptors)
+    assert len(ladder._GRAPHS) == 2        # one key for B = 1, one for B = 3
+    assert ladder.clear_ladder_graphs() == 2

@@ -1,6 +1,7 @@
 """Parity of the port's host helpers with the JAX package's copies
 (utils/progress.py, utils/viz.py): the counterparts of
-tests/test_stream_utils.py's progress and viz checks.
+tests/test_stream_utils.py's progress and viz checks; and public names
+that the port keeps at the JAX package's module paths.
 
 The same seeded numpy inputs go through both packages; the port's
 drawing functions also take torch tensors. Drawn images and decoded
@@ -8,6 +9,8 @@ pixels are held bit-exact; a progress bar's text is held equal once its
 rate, a wall-clock reading, is masked.
 """
 
+import importlib
+import inspect
 import io
 import re
 from types import SimpleNamespace
@@ -112,3 +115,56 @@ def test_export_matches_equals_jax(rng, tmp_path):
     np.testing.assert_array_equal(out, want)
     np.testing.assert_array_equal(viz.read_image_gray(str(tmp_path / "t.png")),
                                   viz.read_image_gray(str(tmp_path / "j.png")))
+
+
+@pytest.mark.parametrize("module,name", [
+    ("ops.features.scale_space", "nld_step"),
+    ("ops.features.scale_space", "fed_cycle"),
+    ("utils.profiling", "time_jitted"),
+])
+def test_public_names_at_jax_module_paths(module, name):
+    """A name the JAX package defines in `module` imports from the port's
+    module of the same path, with the same parameters."""
+    jfn = getattr(importlib.import_module(f"cubesat_apds_tpu.{module}"), name)
+    tfn = getattr(importlib.import_module(f"cubesat_apds_tpu_torch.{module}"),
+                  name)
+    assert list(inspect.signature(tfn).parameters) == \
+        list(inspect.signature(jfn).parameters)
+
+
+def test_scale_space_steps_are_the_kernel_twins():
+    """scale_space.nld_step and fed_cycle are kernel A's plain twins
+    (ops/kernels/diffusion.py), and agree with the JAX package's within
+    tests/test_torch_features.py's atol 1e-5 (XLA fuses the stencil's
+    sums in another order)."""
+    from cubesat_apds_tpu.ops.features import scale_space as jss
+    from cubesat_apds_tpu_torch.ops.features import scale_space as tss
+    from cubesat_apds_tpu_torch.ops.kernels import diffusion
+
+    assert tss.nld_step is diffusion.nld_step
+    assert tss.fed_cycle is diffusion.fed_cycle
+    rng = np.random.default_rng(5)
+    L = rng.uniform(0, 1, (24, 32)).astype(np.float32)
+    g = rng.uniform(0.2, 1, (24, 32)).astype(np.float32)
+    taus = jss.fed_tau_by_process_time(1.0)
+    got = tss.fed_cycle(torch.from_numpy(L), torch.from_numpy(g), taus)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jss.fed_cycle(
+        L, g, taus)), atol=1e-5)
+    one = tss.nld_step(torch.from_numpy(L), torch.from_numpy(g), taus[0])
+    np.testing.assert_allclose(one.numpy(), np.asarray(jss.nld_step(
+        L, g, taus[0])), atol=1e-5)
+
+
+def test_time_jitted_times_a_call():
+    """time_jitted returns the seconds per call of a steady state, after
+    its warm-up calls, on the CPU as the JAX package's does."""
+    from cubesat_apds_tpu_torch.utils.profiling import time_jitted
+
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x * 2.0, (x + 1.0, x - 1.0)
+
+    t = time_jitted(fn, torch.ones(64), iters=5, warmup=2)
+    assert t > 0.0 and len(calls) == 7
