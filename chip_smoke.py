@@ -41,15 +41,25 @@
    the warm-up launches of a ladder graph captured in its window, which
    each check adds to what it expects), and the same frame run through
    the port on the CPU must agree (homography-inlier Jaccard ≥ 0.95, pose
-   ok flag equal, rotation within 0.1°). Times the warmed step: median of
-   10, host clock around a synchronised step, with CUDA events recorded
-   around each step beside it.
+   ok flag equal, rotation within 0.1°). The back half runs as one CUDA
+   graph a key (pipelines/step_graph.py): on the frame's features the
+   graphed back half equals the eager back half (localize_from_features,
+   the function the graph captures) bit for bit, also on a second DB of
+   the same shapes, which must run through the same graph; the Procrustes
+   kernel launches once a frame (its device counter); a warmed step on a
+   host frame runs under set_sync_debug_mode("error"). Times the warmed
+   step: median of 10, host clock around a synchronised step, with CUDA
+   events recorded around each step beside it.
 4. Big-DB phase: bench_localize_bigdb.py's scene made on the card from a
    seeded torch.Generator — the 2,048 real rows of the rolled frame, then
    uniform random filler to 1,048,576 rows, xy uniform over [0, 8192)² —
    through Localizer.localize: one kNN-2 launch per frame (plus 15
    kernel-A and 2 kernel-B), (13, 7) within 1 px, matches identical to the
-   kernel="scan" twin on the same features, and the warmed step time.
+   kernel="scan" twin on the same features, the graphed back half equal
+   to the eager one bit for bit, a warmed step under
+   set_sync_debug_mode("error"), and the warmed step time (kernel 4's and
+   the Procrustes kernel's launches are counted on the device: inside the
+   graph no host wrapper runs).
    (The kernel phase also runs kernels A and B on a batch of 8 frames:
    kernel A once per level for the batch, every main-path level, with its
    plan and device time per image; kernel B on 8 stacks folded into its
@@ -57,7 +67,21 @@
 5. Pruned phase: the same DB with the first 32,768 rows as the coarse DB
    and a window capacity of 16,384, through localize_frame_pruned_jit: coarse
    fix ok, no overflow, (13, 7) within 1 px, and ≥ 0.9 of the big-DB
-   step's homography inliers (by global row id) kept; the warmed step time.
+   step's homography inliers (by global row id) kept; the graphed pruned
+   back half equal to _pruned_back_half bit for bit; a warmed step under
+   set_sync_debug_mode("error"); the warmed step time.
+5b. Procrustes phase: csrc/procrustes3.cu against its plain twin (the
+   torch.linalg.svd form) on the slice's refit matrices and on seeded
+   random, near-singular, reflection, rank-2 and zero cases: R within
+   1e-6 of the twin evaluated in float64 (the kernel's precision; the
+   float32 twin's difference printed), NaN where S is not finite; eager,
+   device, twin and torch.linalg.svd ms at the path's shape beside the
+   bound (the FP64 flops its sweeps do on these inputs, or its bytes).
+5c. Paired phase: the serving step with its back half eager and graphed,
+   in turns (eager, graph, graph, eager), for the 10k slice at B = 1 and
+   8 and the 1M DB at B = 8: frames/s, host launches a step (the CUDA
+   runtime's launch, copy and memset calls under torch.profiler), the
+   graph's nodes, pool MiB and capture seconds.
 6. Stream phase: from seed 42, the 10k scene written as an npz
    FeatureStore and the 1,048,576-row scene as a binary store (LoD 1 = its
    first 32,768 rows), both with a geotransform and an elevation raster;
@@ -71,9 +95,12 @@
    (localize_frame_pruned_jit's when pruned) on the same frame and DB, and
    its packed outputs too (or H within 0.01 px at the corners, equal ok
    flags and inlier Jaccard ≥ 0.95). Kernel A launches 15 times and
-   kernel B twice per batch, kernel 4 once per batch at Q = B × 2,048 on
-   the full 1M DB. A batch's back half at batch 8 launches at most 1.25x
-   the device kernels it launches at batch 1 (10k and pruned).
+   kernel B twice per batch, kernel 4 once per batch on the full 1M DB
+   from a graph captured at Q = B × 2,048, the Procrustes kernel once per
+   batch. A batch's eager back half at batch 8 launches at most 1.25x the
+   device kernels it launches at batch 1 (10k and pruned); the kernels of
+   the back half's graph (its node count) and a step's host launches are
+   printed beside them.
    Prints frames/s, ms per frame, latency p50/p95, the stage times,
    fallback frames, launches per batch, the device kernels of a batch's
    back half and of a step (per frame) of each run. Up to `prefetch`
@@ -112,9 +139,11 @@
 10. Part A: detect_and_compute_batch under
    torch.cuda.set_sync_debug_mode("error") on the 512² frame and a build
    batch of 8 tiles of 256²; one main-path step and one stream batch of 8
-   (its step and its fetch) under "warn", their synchronising calls listed
-   by file:line; the per-keypoint stages'
-   device time at full capacity against the live prefix (bit-equal).
+   (its step, then its fetch) under "warn", their synchronising calls
+   listed by file:line: 0 in the step and in the batch outside its fetch;
+   which torch.linalg SVD routes synchronise (logged); the per-keypoint
+   stages' device time at full capacity against the live prefix
+   (bit-equal).
 11. Accuracy phase (the mission metric, slice 5): utils/accuracy.run on
    the rects and natural textures (seed 2026, a 1024² mosaic at 1 m GSD,
    512² frames, focal 1500 px, altitude 1500 m, capacity 2048 exact,
@@ -777,6 +806,204 @@ def log_knn_build():
         f"{counts or 'none'} (rc {out.returncode})")
 
 
+# The Procrustes kernel (csrc/procrustes3.cu): its one-sided Jacobi
+# SVD in float64, counted per matrix for the bound. A pair's sums take 18
+# flops and its rotation 10 (zeta, t, c, s) plus 36 (two 3×2 column
+# updates of A and V); a skipped pair takes the sums and the test (4). The
+# tail (singular values, u1, u2, the two cross products, R) takes 110.
+PROC_PAIR_SUMS, PROC_PAIR_TEST, PROC_PAIR_ROT, PROC_TAIL = 18, 4, 46, 110
+PROC_SWEEPS = 8
+FP64_FLOPS = 34e12      # H100 SXM FP64 outside the tensor cores (datasheet)
+
+
+def procrustes_flops(S):
+    """Flops the kernel does on `S` [N, 3, 3] (float32, host numpy): its
+    sweeps replayed in float64 on the host, counting the pairs it rotates
+    and the pairs it skips as converged (a non-finite S returns NaN at
+    once and does none)."""
+    a = S[np.isfinite(S).all((1, 2))].astype(np.float64)
+    rot = np.zeros(len(a), np.int64)
+    for _ in range(PROC_SWEEPS):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            al = (a[:, :, p] ** 2).sum(-1)
+            be = (a[:, :, q] ** 2).sum(-1)
+            ga = (a[:, :, p] * a[:, :, q]).sum(-1)
+            go = ~(np.abs(ga) <= 2.220446049250313e-16 * np.sqrt(al * be))
+            z = np.where(go, (be - al) / np.where(go, 2 * ga, 1.0), 0.0)
+            t = np.where(go, np.copysign(1.0, z)
+                         / (np.abs(z) + np.sqrt(1 + z * z)), 0.0)
+            c = 1 / np.sqrt(1 + t * t)
+            sn = c * t
+            ap, aq = a[:, :, p].copy(), a[:, :, q].copy()
+            a[:, :, p] = c[:, None] * ap - sn[:, None] * aq
+            a[:, :, q] = sn[:, None] * ap + c[:, None] * aq
+            rot += go
+    n_pairs = 3 * PROC_SWEEPS * len(a)
+    return int(n_pairs * (PROC_PAIR_SUMS + PROC_PAIR_TEST)
+               + rot.sum() * PROC_PAIR_ROT + PROC_TAIL * len(a))
+
+
+def _rotations(rng, n):
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                  2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                  1 - 2 * (x * x + y * y)], -1)], 1)
+
+
+def procrustes_cases(rng):
+    """Seeded float32 [N, 3, 3] cases: random over twelve decades of
+    scale, near-singular (s3 ~ 1e-7 s1), reflections (det S < 0, distinct
+    singular values), exact rank 2 and the zero matrix."""
+    U, V = _rotations(rng, 4096), _rotations(rng, 4096)
+    s = np.sort(rng.uniform(0.2, 1.0, (4096, 3)), axis=1)[:, ::-1]
+    near, rank2 = s.copy(), s.copy()
+    near[:, 2] = 1e-7 * rng.uniform(size=4096)
+    rank2[:, 2] = 0.0
+
+    def make(sv, Ua):
+        return np.einsum("nij,nj,nkj->nik", Ua, sv, V).astype(np.float32)
+
+    scale = 10.0 ** rng.uniform(-6, 6, (4096, 1, 1))
+    return [("seeded random", (rng.standard_normal((4096, 3, 3)) * scale)
+             .astype(np.float32)),
+            ("near-singular", make(near, U)),
+            ("reflection", make(s, U @ np.diag([1.0, 1.0, -1.0]))),
+            ("rank 2", make(rank2, U)),
+            ("zero", np.zeros((1, 3, 3), np.float32))]
+
+
+def procrustes_phase(torch, dev, path_S, launches):
+    """The Procrustes kernel against its plain twin on the card: on the
+    slice's refit matrices (the main path's inputs) and the seeded cases,
+    R within 1e-6 of the twin evaluated in float64 (the kernel's own
+    precision; against the float32 twin, the path's CPU form, the
+    difference is printed); NaN for a non-finite S. Times at the path's
+    shape: eager, device (graph replays), the twin, torch.linalg.svd
+    alone (the library's nearest call: the factors, not R), and the bound
+    from the flops the kernel does on these inputs at the FP64 peak, or
+    its bytes at HBM speed."""
+    from cubesat_apds_tpu_torch.ops.kernels import procrustes as tproc
+
+    rng = np.random.default_rng(SEED + 11)
+    cases = [("the 10k slice's refit", path_S.cpu().numpy())] \
+        + procrustes_cases(rng)
+    log("Procrustes kernel vs plain twin on the card (R, max abs error "
+        "against the twin in float64 / in float32, over the finite S; a "
+        "non-finite S must give NaN in both):")
+
+    def diff(R, want):
+        nan = R.isnan()
+        return bool(torch.equal(nan, want.isnan())), float(
+            (R - want).abs().masked_fill(nan, 0.0).max())
+
+    err = 0.0
+    for label, S in cases:
+        St = torch.from_numpy(S).to(dev)
+        R = tproc.procrustes_rotation_cuda(St)
+        nan64, e64 = diff(R, tproc.procrustes_rotation_plain(
+            St.double()).float())
+        nan32, e32 = diff(R, tproc.procrustes_rotation_plain(St))
+        n_nan = int(R.isnan().flatten(-2).all(-1).sum())
+        log(f"  {label} ({len(S)} matrices, {n_nan} non-finite): "
+            f"{e64:.3e} / {e32:.3e}")
+        check(nan64 and nan32 and e64 <= 1e-6,
+              f"Procrustes kernel {label}: R within 1e-6 of the twin "
+              "(float64), NaN where the twin's is")
+        err = max(err, e64)
+    S = torch.eye(3, device=dev).repeat(2, 1, 1)
+    S[1, 0, 1] = float("nan")
+    R = tproc.procrustes_rotation_cuda(S)
+    check(torch.equal(R[0], S[0]) and bool(R[1].isnan().all()),
+          "Procrustes kernel: S = I gives I, a non-finite S gives NaN")
+    n = len(path_S)
+    ms = cuda_ms(torch, lambda: tproc.procrustes_rotation_cuda(path_S))
+    dms = graph_ms(torch, lambda: tproc.procrustes_rotation_cuda(path_S))
+    pms = cuda_ms(torch, lambda: tproc.procrustes_rotation_plain(path_S))
+    lms = cuda_ms(torch, lambda: torch.linalg.svd(path_S))
+    flops = procrustes_flops(path_S.cpu().numpy())
+    nbytes = 2 * 36 * n
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP64_FLOPS \
+        else "operations"
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP64_FLOPS) * 1e3
+    log(f"  at the path's {n} matrices: kernel {ms:.4f} ms (device "
+        f"{dms:.4f}), twin {pms:.4f} ms, torch.linalg.svd alone {lms:.4f} "
+        f"ms; bound {bound:.3e} ms ({flops} FP64 flops, {nbytes} B; by "
+        f"{by})")
+    return {"name": "procrustes3", "route": "cuda",
+            "source": "cubesat_apds_tpu_torch/csrc/procrustes3.cu",
+            "replaces": "cubesat_apds_tpu/ops/geometry/epnp.py:112",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "device_ms": dms, "plain_ms": pms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lms, "matrices": n}
+
+
+def graph_pair_phase(torch, dev, loc10k, loc_big, frame_t):
+    """Paired runs in one call of the serving step with its back half
+    eager (`localize_from_features`, the function the graph captures) and
+    graphed (`back_half`): the 10k slice at B = 1 and 8 and the 1M DB at
+    B = 8, in turns eager, graph, graph, eager; each turn the median of 6
+    synchronised steps (front half + back half) on the host clock. Prints
+    frames/s, host launches a step, the graph's nodes, pool MiB and
+    capture seconds, beside the card."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        detect_and_compute, detect_and_compute_batch)
+    from cubesat_apds_tpu_torch.pipelines import step_graph
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        back_half, localize_from_features)
+
+    config = serving_config()
+    lone = frame_t.to(dev)
+    batch = torch.stack([torch.roll(lone, (k, 2 * k), (0, 1))
+                         for k in range(STREAM_BATCH)])
+    cases = [("10k slice, B = 1", loc10k, lone, 1),
+             (f"10k slice, B = {STREAM_BATCH}", loc10k, batch,
+              STREAM_BATCH),
+             (f"1M DB, B = {STREAM_BATCH}", loc_big, batch, STREAM_BATCH)]
+    out = {}
+    for label, loc, x, b in cases:
+        def front(x=x, b=b):
+            return (detect_and_compute(x, config.akaze) if b == 1 else
+                    detect_and_compute_batch(x, config.akaze))
+
+        steps = {
+            "eager": lambda loc=loc, front=front: localize_from_features(
+                front(), loc.db, loc.camera, config, True),
+            "graph": lambda loc=loc, front=front: back_half(
+                front(), loc.db, loc.camera, config, True)}
+        steps["graph"]()
+        entry = step_graph.step_graphs()[-1]
+        secs = {"eager": [], "graph": []}
+        for mode in ("eager", "graph", "graph", "eager"):
+            steps[mode]()
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                steps[mode]()
+                torch.cuda.synchronize()
+                t.append(time.perf_counter() - t0)
+            secs[mode].append(float(np.median(t)))
+        host = {m: host_launches(torch, steps[m]) for m in steps}
+        fps = {m: [b / v for v in secs[m]] for m in secs}
+        r = {"frames_per_s": fps, "host_launches": host,
+             "graph_nodes": entry.nodes,
+             "pool_mib": entry.pool_bytes / 2 ** 20,
+             "capture_s": entry.capture_s, "warmup_s": entry.warmup_s}
+        log(f"paired {label}: frames/s eager {fps['eager']}, graph "
+            f"{fps['graph']} (turns eager, graph, graph, eager); host "
+            f"launches a step {host}; the graph {entry.nodes}, pool "
+            f"{r['pool_mib']:.1f} MiB, warm-up {entry.warmup_s:.3f} s, "
+            f"capture {entry.capture_s:.3f} s")
+        out[label] = r
+    return out
+
+
 def inlier_pairs(res):
     """Homography inliers as (query x, query y, train index) rows."""
     kp = res.keypoints.xy.cpu().numpy()
@@ -811,6 +1038,76 @@ def rotation_deg(rv_a, rv_b):
     return float(torch.rad2deg(torch.arccos(c.clamp(-1.0, 1.0))))
 
 
+def graph_against_eager(torch, label, graphed, eager):
+    """The serving step's back half through its CUDA graph (`graphed()`,
+    pipelines/step_graph.py) against the eager back half that the graph
+    captures (`eager()`) on the same features: every output tensor bit
+    for bit. Prints the key's graph: its nodes, pool and seconds."""
+    from cubesat_apds_tpu_torch.pipelines import step_graph
+
+    got = graphed()
+    entry = step_graph.step_graphs()[-1]          # the key just used
+    want = eager()
+    torch.cuda.synchronize()
+    lg, lw = step_graph.leaves(got), step_graph.leaves(want)
+    same = [torch.equal(a, b) for a, b in zip(lg, lw)]
+    graph_ms = cuda_ms(torch, graphed, reps=5, rounds=3)
+    eager_ms = cuda_ms(torch, eager, reps=2, rounds=3)
+    log(f"{label}: graphed back half against the eager back half on the "
+        f"same features: {sum(same)} of {len(lw)} output tensors bit-equal; "
+        f"the graph: {entry.nodes} nodes, pool "
+        f"{entry.pool_bytes / 2 ** 20:.1f} MiB, warm-up "
+        f"{entry.warmup_s:.3f} s, capture {entry.capture_s:.3f} s; back "
+        f"to back (CUDA events) {graph_ms:.2f} ms a graphed call (copies, "
+        f"replay, clones) against {eager_ms:.2f} ms eager")
+    check(len(lg) == len(lw) and all(same),
+          f"{label}: the graphed back half equals the eager back half bit "
+          "for bit")
+    return {"nodes": entry.nodes, "pool_mib": entry.pool_bytes / 2 ** 20,
+            "warmup_s": entry.warmup_s, "capture_s": entry.capture_s,
+            "graph_ms": graph_ms, "eager_ms": eager_ms}
+
+
+def refit_matrices(torch, run):
+    """The cross-covariances S [N, 3, 3] that the refit's exact Procrustes
+    takes during `run()` (an eager back half): the Procrustes kernel's
+    inputs on the main path."""
+    from cubesat_apds_tpu_torch.ops.geometry import epnp
+
+    seen = []
+    orig = epnp.procrustes_rotation
+
+    def recorded(S):
+        seen.append(S.detach().reshape(-1, 3, 3).clone())
+        return orig(S)
+
+    epnp.procrustes_rotation = recorded
+    try:
+        run()
+    finally:
+        epnp.procrustes_rotation = orig
+    torch.cuda.synchronize()
+    return torch.cat(seen)
+
+
+def no_sync(torch, step, label):
+    """A warmed `step()` under set_sync_debug_mode("error"): any
+    synchronising call fails the phase."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    except RuntimeError as e:
+        raise SmokeFailure(f"{label}: a synchronising call in a warmed step "
+                           f"({str(e).splitlines()[0]})") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(True, f"{label}: a warmed step ran under "
+          "set_sync_debug_mode('error') without a synchronising call")
+
+
 def slice_phase(torch, dev, profile_dir):
     from cubesat_apds_tpu_torch.bench import scene
     from cubesat_apds_tpu_torch.pipelines.localize import Localizer
@@ -838,6 +1135,11 @@ def slice_phase(torch, dev, profile_dir):
     check(launches == {"fed_cycle": 15,
                        "sample_patches": 2 + counted.warmup},
           "15 kernel-A and 2 kernel-B launches per frame")
+    check(counted.procrustes == 1 + counted.warmups["procrustes3"],
+          f"1 Procrustes launch per frame, in the back half's graph "
+          f"({counted.procrustes}; {counted.warmups['procrustes3']} in "
+          "step-graph warm-ups)")
+    launches["procrustes3"] = counted.procrustes
     events = kernel_events(torch, lambda: gpu.localize(frame_t))
     log(f"the profiler's device events by kernel name: {events} (logged: "
         "its trace misattributes CUDA-graph kernels between sessions)")
@@ -875,6 +1177,36 @@ def slice_phase(torch, dev, profile_dir):
     check(bool(res.pose.ok) == bool(res_cpu.pose.ok), "pose ok flags agree")
     check(dang <= 0.1, "CUDA and CPU rotations within 0.1 deg")
 
+    # The back half: graphed against eager on the same features, on this
+    # DB and on a second DB of the same shapes (its rows rolled), which
+    # runs through the same graph.
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
+    from cubesat_apds_tpu_torch.pipelines import step_graph
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        back_half, localize_from_features)
+
+    feats = detect_and_compute(frame_t.to(dev), config.akaze)
+    graph = graph_against_eager(
+        torch, "10k slice", lambda: back_half(feats, gpu.db, gpu.camera,
+                                              config, True),
+        lambda: localize_from_features(feats, gpu.db, gpu.camera, config,
+                                       True))
+    db2 = dataclasses.replace(gpu.db, **{
+        f: getattr(gpu.db, f).roll(2048, 0)
+        for f in ("descriptors", "xy", "valid", "obj_points")})
+    n_graphs = len(step_graph.step_graphs())
+    graph_against_eager(
+        torch, "10k slice, a second DB of the same shapes",
+        lambda: back_half(feats, db2, gpu.camera, config, True),
+        lambda: localize_from_features(feats, db2, gpu.camera, config, True))
+    check(len(step_graph.step_graphs()) == n_graphs,
+          "a second DB of the same shapes runs through the same graph")
+    path_S = refit_matrices(torch, lambda: localize_from_features(
+        feats, gpu.db, gpu.camera, config, True))
+    no_sync(torch, lambda: gpu.localize(frame_t), "10k slice (a host frame)")
+
     step_s, event_ms = [], []
     for _ in range(10):
         a = torch.cuda.Event(enable_timing=True)
@@ -895,42 +1227,55 @@ def slice_phase(torch, dev, profile_dir):
     if profile_dir:
         profile_step(torch, lambda: gpu.localize(frame_t), profile_dir,
                      "slice")
-    return launches, med, gpu, frame_t
+    return launches, med, gpu, frame_t, path_S, graph
 
 
-# Kernel B counts its launches on the device (eager or replayed from a
-# ladder graph): its count is the change of that counter since the last
-# _reset_launches(), the warm-ups of ladder graphs captured in the window
-# included (the read's `warmup` says how many of them).
-_B_BASE = {"device": 0, "warmup": 0}
+# Kernels B, 4 and the Procrustes kernel count their launches on the
+# device (eager or replayed from a CUDA graph: the ladder's and the
+# serving step's): each count is the change of its counter since the last
+# _reset_launches(), the warm-ups of graphs captured in the window
+# included (the read's `warmups` say how many of them).
+_BASE = {}
 
 
 class _Launches(dict):
-    """Kernel launches in a window, by kernel; `warmup`: kernel B's
-    launches in the warm-ups of ladder graphs captured in it (part of
-    its count)."""
+    """Kernel launches in a window, by kernel (A, B and 4; the Procrustes
+    kernel's count is `procrustes`, read by the phases that hold the
+    serving step's back half to it); `warmups`: each device-counted
+    kernel's launches in the warm-ups of graphs captured in the window
+    (part of its count), and `warmup` kernel B's."""
     warmup = 0
+    procrustes = 0
+    warmups = {}
+
+
+def _device_counts():
+    from cubesat_apds_tpu_torch.ops.features import ladder
+    from cubesat_apds_tpu_torch.ops.kernels import build
+    from cubesat_apds_tpu_torch.pipelines import step_graph
+    counts = {k: build.device_launches(k, "cuda")
+              for k in ("sample_patches", "knn2_hamming", "procrustes3")}
+    warm = dict(step_graph.warmup_launches(),
+                sample_patches=ladder.warmup_launches())
+    return counts, warm
 
 
 def _reset_launches():
-    from cubesat_apds_tpu_torch.ops.features import ladder
-    from cubesat_apds_tpu_torch.ops.kernels import (
-        diffusion, match_kernel, sample_kernel)
+    from cubesat_apds_tpu_torch.ops.kernels import diffusion
     diffusion.fed_cycle_cuda.launches = 0
-    match_kernel.knn2_hamming_cuda.launches = 0
-    _B_BASE["device"] = sample_kernel.device_launches("cuda")
-    _B_BASE["warmup"] = ladder.warmup_launches()
+    _BASE["counts"], _BASE["warm"] = _device_counts()
 
 
 def _read_launches():
-    from cubesat_apds_tpu_torch.ops.features import ladder
-    from cubesat_apds_tpu_torch.ops.kernels import (
-        diffusion, match_kernel, sample_kernel)
+    from cubesat_apds_tpu_torch.ops.kernels import diffusion
+    counts, warm = _device_counts()
+    d = {k: counts[k] - _BASE["counts"][k] for k in counts}
     out = _Launches(fed_cycle=diffusion.fed_cycle_cuda.launches,
-                    sample_patches=sample_kernel.device_launches("cuda")
-                    - _B_BASE["device"],
-                    knn2_hamming=match_kernel.knn2_hamming_cuda.launches)
-    out.warmup = ladder.warmup_launches() - _B_BASE["warmup"]
+                    sample_patches=d["sample_patches"],
+                    knn2_hamming=d["knn2_hamming"])
+    out.procrustes = d["procrustes3"]
+    out.warmups = {k: warm[k] - _BASE["warm"][k] for k in warm}
+    out.warmup = out.warmups["sample_patches"]
     return out
 
 
@@ -1008,7 +1353,7 @@ def bigdb_phase(torch, dev, profile_dir):
     from cubesat_apds_tpu_torch.core.types import CameraModel
     from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
     from cubesat_apds_tpu_torch.pipelines.localize import (
-        Localizer, localize_from_features)
+        Localizer, back_half, localize_from_features)
 
     config = serving_config()
     t0 = time.perf_counter()
@@ -1029,9 +1374,14 @@ def bigdb_phase(torch, dev, profile_dir):
     launches = _read_launches()
     log(f"big-DB launches in one frame: {launches}")
     check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
-                       "knn2_hamming": 1},
+                       "knn2_hamming": 1 + launches.warmups["knn2_hamming"]},
           "1 kNN-2, 15 kernel-A and 2 kernel-B launches per big-DB frame "
-          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
+          f"({launches.warmup} kernel-B launches in ladder warm-ups, "
+          f"{launches.warmups['knn2_hamming']} kNN-2 in step-graph "
+          "warm-ups; kNN-2 on its device counter, inside the back half's "
+          "graph)")
+    check(launches.procrustes == 1 + launches.warmups["procrustes3"],
+          f"1 Procrustes launch per big-DB frame ({launches.procrustes})")
     H = res.homography.H.cpu().numpy()
     log(f"big DB: keypoints={int(res.num_keypoints)} "
         f"matches={int(res.num_matches)} "
@@ -1057,19 +1407,27 @@ def bigdb_phase(torch, dev, profile_dir):
     log(f"big DB kernel vs scan matches identical: {same} "
         f"({int(res_k.num_matches)} matches)")
     check(all(same.values()), "big-DB matches identical to kernel=\"scan\"")
+    graph = graph_against_eager(
+        torch, "big DB", lambda: back_half(q_feats, loc.db, loc.camera,
+                                           config, True),
+        lambda: localize_from_features(q_feats, loc.db, loc.camera, config,
+                                       True))
+    no_sync(torch, lambda: loc.localize(frame_t), "big DB (a host frame)")
 
     med = timed_steps(torch, lambda: loc.localize(frame_t), "big-DB")
     if profile_dir:
         profile_step(torch, lambda: loc.localize(frame_t), profile_dir,
                      "bigdb")
-    return launches, med, loc, res, frame_t
+    return launches, med, loc, res, frame_t, graph
 
 
 def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
     """The big DB pruned: the first 32,768 rows as the coarse DB, a window
     capacity of 16,384, through localize_frame_pruned_jit."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
     from cubesat_apds_tpu_torch.pipelines.localize import (
-        DeviceDb, localize_frame_pruned_jit, make_pruned_db)
+        DeviceDb, _pruned_back_half, localize_frame_pruned_jit,
+        make_pruned_db, pruned_back_half)
 
     config = serving_config()
     db = loc.db
@@ -1099,6 +1457,8 @@ def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
                        "knn2_hamming": 0},
           "15 kernel-A and 2 kernel-B launches per pruned frame "
           f"({launches.warmup} kernel-B launches in ladder warm-ups)")
+    check(launches.procrustes == 1 + launches.warmups["procrustes3"],
+          f"1 Procrustes launch per pruned frame ({launches.procrustes})")
     H = pr.result.homography.H.cpu().numpy()
     p_ids = inlier_ids(pr.result, pr.sel)
     f_ids = inlier_ids(full_res)
@@ -1118,10 +1478,18 @@ def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
           f"pruned H recovers (13, 7) (got {H[0, 2]:.3f}, {H[1, 2]:.3f})")
     check(containment >= CONTAINMENT_MIN,
           f"pruned keeps >= {CONTAINMENT_MIN} of the big-DB step's inliers")
+    feats = detect_and_compute(frame_t.to(dev), config.akaze)
+    hw = tuple(frame_t.shape)
+    graph = graph_against_eager(
+        torch, "pruned", lambda: pruned_back_half(
+            feats, hw, pdb, loc.camera, config, True, 0.25),
+        lambda: _pruned_back_half(feats, hw, pdb, loc.camera, config, True,
+                                  0.25))
+    no_sync(torch, step, "pruned (a host frame)")
     med = timed_steps(torch, step, "pruned")
     if profile_dir:
         profile_step(torch, step, profile_dir, "pruned")
-    return launches, med
+    return launches, med, graph
 
 
 # ---- the stream phase: stored DBs served as a stream -----------------------
@@ -1236,7 +1604,7 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     then the device kernels of one batch's back half and of one step,
     counted under torch.profiler."""
     from cubesat_apds_tpu_torch.core.types import select
-    from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
+    from cubesat_apds_tpu_torch.pipelines import step_graph
     from cubesat_apds_tpu_torch.pipelines import stream as stream_mod
 
     s = make_stream()
@@ -1244,30 +1612,21 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     list(s.run(frames[:b]))                        # warm-up, outside
     torch.cuda.synchronize()
     s.times = type(s.times)()
-    record = []
-    name = "_pruned_back_half" if kind == "pruned" else \
-        "localize_from_features"
+    record, used = [], []
+    name = "pruned_back_half" if kind == "pruned" else "back_half"
     orig = getattr(stream_mod, name)
 
     def recorded(feats, *a, **k):
-        # One call per batch: its rows, frame by frame, in stream order.
+        # One call per batch (a replay of the back half's graph): its rows,
+        # frame by frame, in stream order, and the graph it replayed.
         out = orig(feats, *a, **k)
+        used.append(step_graph.step_graphs()[-1])
         res = out.result if kind == "pruned" else out
         record.extend((select(feats, i), select(res, i))
                       for i in range(feats.descriptors.shape[0]))
         return out
 
-    # The queries of each big-DB match (knn2_fused launches kernel 4 once
-    # a call on the card).
-    knn_q = []
-    knn_orig = tmk.knn2_fused
-
-    def knn_recorded(q_words, *a, **k):
-        knn_q.append(q_words.shape[0])
-        return knn_orig(q_words, *a, **k)
-
     setattr(stream_mod, name, recorded)
-    tmk.knn2_fused = knn_recorded
     try:
         _reset_launches()
         t0 = time.perf_counter()
@@ -1277,7 +1636,6 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
         launches = _read_launches()
     finally:
         setattr(stream_mod, name, orig)
-        tmk.knn2_fused = knn_orig
     steps = -(-len(frames) // b)
     check([r.frame_id for r in results] == list(range(len(frames))),
           f"{label}: {len(frames)} frames back, in order")
@@ -1288,16 +1646,25 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
           f"{b} ({launches['fed_cycle']} and {launches['sample_patches']} "
           f"for {steps} batches, {s.fallback_frames} fallback frames; "
           f"{launches.warmup} kernel-B launches in ladder warm-ups)")
+    graph = stream_graph(s, used)
     if kind == "full1M":
         # The batched back half matches a batch's B·capacity queries in
         # ONE kernel-4 launch, as the JAX package's single knn2_fused call
-        # under vmap (a fallback frame adds its own).
+        # under vmap (a fallback frame adds its own). The launches are the
+        # kernel's device count (each batch replays the back half's graph,
+        # captured from a batch of B frames' features).
         cap = s.config.akaze.capacity
-        check(launches["knn2_hamming"] == steps + s.fallback_frames
-              and knn_q[:steps] == [b * cap] * steps,
+        warm = launches.warmups["knn2_hamming"]
+        check(launches["knn2_hamming"] == steps + s.fallback_frames + warm
+              and graph["queries"] == b * cap,
               f"{label}: one kNN-2 launch per batch at Q = {b} x {cap} = "
               f"{b * cap} ({launches['knn2_hamming']} launches for {steps} "
-              f"batches, Q {sorted(set(knn_q))})")
+              f"batches, {warm} in step-graph warm-ups; the graph's "
+              f"queries {graph['queries']})")
+    warm = launches.warmups["procrustes3"]
+    check(launches.procrustes == steps + s.fallback_frames + warm,
+          f"{label}: one Procrustes launch per batch ({launches.procrustes} "
+          f"for {steps} batches, {warm} in step-graph warm-ups)")
     bad, near = [], {}
     for i, r in enumerate(results):
         dx, dy = shifts[i % len(shifts)]
@@ -1337,25 +1704,30 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     lat = sorted(r.latency_s for r in results)
     fps = len(results) / wall
     p50, p95 = lat[len(lat) // 2], lat[int(0.95 * len(lat)) - 1]
-    back, step_k, busy = batch_kernels(torch, s, frames[:b], kind)
+    back, step_k, busy, host = batch_kernels(torch, s, frames[:b], kind)
     idle = 1.0 - busy / (wall / steps * 1e3)
+    per_batch = {k: v / steps for k, v in launches.items()}
+    per_batch["procrustes3"] = launches.procrustes / steps
     log(f"{label}: {len(results)} frames in {wall:.3f} s = {fps:.2f} "
         f"frames/s, {wall / len(results) * 1e3:.2f} ms per frame; latency "
         f"p50 {p50 * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms; fallback_frames "
-        f"{s.fallback_frames}; launches per batch: "
-        f"{ {k: v / steps for k, v in launches.items()} }; device kernels: "
-        f"{back} in a batch's back half, {step_k} in a step = "
-        f"{step_k / b:.1f} a frame; a step's device-busy {busy:.3f} ms of "
-        f"{wall / steps * 1e3:.2f} ms a step in the stream (idle share "
-        f"{idle:.4f})")
+        f"{s.fallback_frames}; launches per batch: {per_batch}; device "
+        f"kernels: {back} in the eager back half of a batch (profiler), "
+        f"{graph['nodes']['kernels']} in its graph (of {graph['nodes']} "
+        f"nodes); host launches a step {host}; the profiler's device events "
+        f"in a step {step_k} = {step_k / b:.1f} a frame, device-busy "
+        f"{busy:.3f} ms of {wall / steps * 1e3:.2f} ms a step in the stream "
+        f"(idle share {idle:.4f}; the profiler may miss graph kernels)")
     log("\n".join("    " + ln for ln in s.times.report().splitlines()))
     check(not bad, f"{label}: every frame recovers its shift within 1 px "
           f"and agrees with its reference" + ("" if not bad else
                                               ": " + "; ".join(bad[:5])))
     return {"frames_per_s": fps, "ms_per_frame": wall / len(results) * 1e3,
             "p50_s": p50, "p95_s": p95,
-            "launches_per_batch": {k: v / steps for k, v in launches.items()},
+            "launches_per_batch": per_batch,
             "back_half_kernels_per_batch": back,
+            "back_half_graph_kernels": graph["nodes"]["kernels"],
+            "host_launches_per_step": host, "pool_mib": graph["pool_mib"],
             "kernels_per_frame": step_k / b, "idle_share": idle,
             "fallback_frames": s.fallback_frames, "results": results}
 
@@ -1375,27 +1747,71 @@ def device_kernels(torch, fn):
     return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
 
 
+def stream_graph(s, used):
+    """The back half's graph that the stream `s` replayed at every batch
+    (`used`, one entry a batch): its node counts, pool MiB and the
+    queries of its match (B · capacity)."""
+    check(len({id(e) for e in used}) == 1,
+          f"the stream's batches replay one back-half graph "
+          f"({len({id(e) for e in used})} for {len(used)} batches)")
+    e = used[0]
+    check(e.static_args[0].descriptors.shape[:-1]
+          == (s.batch, s.config.akaze.capacity),
+          "the stream's graph was captured from a batch's features")
+    return {"nodes": e.nodes, "pool_mib": e.pool_bytes / 2 ** 20,
+            "capture_s": e.capture_s,
+            "queries": e.static_args[0].descriptors.shape[:-1].numel()}
+
+
+def host_launches(torch, fn):
+    """Launches the host issues in one warmed call of `fn`: the CUDA
+    runtime calls that queue device work (kernel and graph launches,
+    copies, memsets), counted from torch.profiler's runtime events."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events() if e.device_type == DeviceType.CPU
+        and any(k in e.name for k in ("LaunchKernel", "GraphLaunch",
+                                      "Memcpy", "Memset")))
+    return sum(names.values())
+
+
 def batch_kernels(torch, s, frames, kind):
-    """(device kernels of a batch's back half, of the whole step, the
-    step's device-busy ms) for the stream `s` on one batch of `frames`."""
+    """(device kernels of a batch's eager back half, the profiler's device
+    events of the whole step, the step's device-busy ms under the
+    profiler, the step's host launches) for the stream `s` on one batch of
+    `frames`. The eager back half is the function the step's graph
+    captures; the profiler may miss the kernels of a graph replay."""
     from cubesat_apds_tpu_torch.ops.features.akaze import (
         detect_and_compute_batch)
     from cubesat_apds_tpu_torch.pipelines import stream as stream_mod
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        _pruned_back_half, localize_from_features)
 
     x = torch.stack([torch.from_numpy(f) for f in frames]).to(s.device)
     feats = detect_and_compute_batch(stream_mod._as_float(x),
                                      s.config.akaze)
     if kind == "pruned":
         def back():
-            return stream_mod._pruned_back_half(
+            return _pruned_back_half(
                 feats, tuple(x.shape[1:]), s.db, s.camera, s.config,
                 s.solve_pose, stream_mod._MARGIN)
     else:
         def back():
-            return stream_mod.localize_from_features(
+            return localize_from_features(
                 feats, s.db, s.camera, s.config, s.solve_pose)
     return (device_kernels(torch, back)[0],
-            *device_kernels(torch, lambda: s._step(x)))
+            *device_kernels(torch, lambda: s._step(x)),
+            host_launches(torch, lambda: s._step(x)))
 
 
 def stream_phase(torch, dev, profile_dir):
@@ -1600,13 +2016,21 @@ def sync_phase(torch, dev, loc, frame_t, image):
         return found
 
     sites = sync_sites(lambda: loc.localize(frame_t), "main-path step")
-    # A stream batch of 8 (the step and its one fetch of the packed rows).
+    check(not sites, "main-path step (a host frame): 0 synchronising calls")
+    # A stream batch of 8: the step, then its one fetch of the packed rows.
     stream = StreamingLocalizer(loc.db, loc.camera, serving_config(),
                                 batch=STREAM_BATCH, device=dev)
     x = torch.stack([torch.roll(frame_t, (k, 2 * k), (0, 1))
                      for k in range(STREAM_BATCH)]).to(dev)
-    batch_sites = sync_sites(lambda: stream._step(x).cpu(),
-                             f"stream batch of {STREAM_BATCH} (10k DB)")
+    batch_sites = sync_sites(lambda: stream._step(x),
+                             f"stream batch of {STREAM_BATCH} (10k DB), "
+                             "its step")
+    check(not batch_sites, f"stream batch of {STREAM_BATCH}: 0 "
+          "synchronising calls outside its fetch")
+    out = stream._step(x)
+    fetch_sites = sync_sites(lambda: out.cpu(), f"stream batch of "
+                             f"{STREAM_BATCH}, its one fetch")
+    linalg = linalg_syncs(torch, dev)
 
     stages = {}
     for label, x, akaze in cases:
@@ -1628,7 +2052,46 @@ def sync_phase(torch, dev, loc, frame_t, image):
         stages[label] = {"capacity_ms": full_ms, "prefix_ms": pre_ms,
                          "live": n_live, "capacity": cap}
     return {"sync_sites": dict(sites), "batch_sync_sites": dict(batch_sites),
+            "fetch_sync_sites": dict(fetch_sites), "linalg_syncs": linalg,
             "per_keypoint_stages": stages}
+
+
+def linalg_syncs(torch, dev):
+    """Which torch.linalg routes to a batch of 3×3 SVD factors (or the
+    eigenvectors of SᵀS) run on the card without a synchronising call:
+    each under set_sync_debug_mode("error"), on 24 matrices, the refit's
+    count at batch 8. Logged, not a gate: the Procrustes kernel exists
+    because none of them does."""
+    S = torch.randn(24, 3, 3, generator=torch.Generator(device=dev)
+                    .manual_seed(SEED), device=dev)
+    calls = {
+        "torch.linalg.svd": lambda: torch.linalg.svd(S),
+        "torch.linalg.svd (gesvd)": lambda: torch.linalg.svd(
+            S, driver="gesvd"),
+        "torch.linalg.svd (gesvdj)": lambda: torch.linalg.svd(
+            S, driver="gesvdj"),
+        "torch.linalg.svd (gesvda)": lambda: torch.linalg.svd(
+            S, driver="gesvda"),
+        "torch.svd": lambda: torch.svd(S),
+        "torch.linalg.svd float64": lambda: torch.linalg.svd(S.double()),
+        "torch.linalg.eigh(SᵀS)": lambda: torch.linalg.eigh(S.mT @ S),
+    }
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            out[name] = "no sync"
+        except RuntimeError:
+            out[name] = "syncs"
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    log(f"torch {torch.__version__}: the SVD routes under "
+        f"set_sync_debug_mode('error'): {out}")
+    return out
 
 
 # ---- slice 11: the capacity ladder on the card ------------------------------
@@ -3900,6 +4363,11 @@ def profile_step(torch, step, out_dir, name, frames_per_step=1):
            if frames_per_step > 1 else ""))
 
 
+def _mark(t_start, label):
+    """The seconds since the script started, when a phase has ended."""
+    log(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3947,17 +4415,29 @@ def main(argv=None):
         kernels = kernel_phase(torch, dev, rungs["frame"]) + [
             knn_phase(torch, dev)]
         kernels[-1]["batch_step_shape"] = knn_batch_phase(torch, dev)
+        _mark(t_start, "kernel phases")
         a_batch_ms, b_batch_ms = batch_kernel_phase(torch, dev)
         build_kernels = build_kernel_phase(torch, dev, rungs["build"])
-        launches, step_s, loc10k, frame_t = slice_phase(torch, dev,
-                                                        args.profile)
-        big_launches, big_s, loc, big_res, big_frame = bigdb_phase(
-            torch, dev, args.profile)
-        _, pruned_s = pruned_phase(torch, dev, loc, big_res, big_frame,
-                                   args.profile)
+        _mark(t_start, "build kernel phase")
+        launches, step_s, loc10k, frame_t, path_S, slice_graph = \
+            slice_phase(torch, dev, args.profile)
+        _mark(t_start, "slice phase")
+        big_launches, big_s, loc, big_res, big_frame, big_graph = \
+            bigdb_phase(torch, dev, args.profile)
+        _mark(t_start, "big-DB phase")
+        _, pruned_s, pruned_graph = pruned_phase(
+            torch, dev, loc, big_res, big_frame, args.profile)
+        _mark(t_start, "pruned phase")
         del big_res
+        kernels.append(procrustes_phase(torch, dev, path_S,
+                                        launches["procrustes3"]))
+        _mark(t_start, "Procrustes phase")
+        paired = graph_pair_phase(torch, dev, loc10k, loc, frame_t)
+        _mark(t_start, "paired phase")
         streams, stream_ctx = stream_phase(torch, dev, args.profile)
+        _mark(t_start, "stream phase")
         mesh = mesh_phase(torch, dev, loc, stream_ctx, image)
+        _mark(t_start, "mesh phase")
         del loc, stream_ctx
         with tempfile.TemporaryDirectory() as root:
             store, ds, db_build, tiles_dir, crop = build_phase(torch, dev, root,
@@ -3970,17 +4450,28 @@ def main(argv=None):
             serve = serve_phase(torch, dev, path, ds,
                                 db_build["keypoints_per_lod"])
             del store, ds
+            _mark(t_start, "build, serve and store phases")
         tiled = tiled_phase(torch, dev, terrain, image)
+        _mark(t_start, "tiled phase")
         part_a = sync_phase(torch, dev, loc10k, frame_t, image)
+        _mark(t_start, "sync phase")
         ladder_run = ladder_phase(torch, dev, image)
+        _mark(t_start, "ladder phase")
         cli_crop = image[:CLI_CROP, :CLI_CROP].copy()
         del loc10k, image, terrain
         accuracy = accuracy_phase(torch, dev)
+        _mark(t_start, "accuracy phase")
         calibration = calibration_phase(torch, dev, card)
+        _mark(t_start, "calibration phase")
         modes = modes_phase(torch, dev)
+        _mark(t_start, "modes phase")
         cli = cli_phase(torch, dev, card, cli_crop)
+        _mark(t_start, "CLI phase")
         launches = dict(launches, knn2_hamming=big_launches["knn2_hamming"])
-        for k in kernels:
+        kernels[3]["stream_launches_per_batch"] = {
+            label: r["launches_per_batch"]["procrustes3"]
+            for label, r in streams.items()}
+        for k in kernels[:3]:
             name = k["name"]
             k["launches"] = launches[name]
             k["stream_launches_per_batch"] = {
@@ -4044,7 +4535,17 @@ def main(argv=None):
                 for label, r in streams.items()))
         log(f"card: {card} — syncs: main-path step "
             f"{sum(part_a['sync_sites'].values())}, stream batch of "
-            f"{STREAM_BATCH} {sum(part_a['batch_sync_sites'].values())}")
+            f"{STREAM_BATCH} {sum(part_a['batch_sync_sites'].values())} "
+            f"outside its fetch, its fetch "
+            f"{sum(part_a['fetch_sync_sites'].values())}")
+        log(f"card: {card} — the back half's graphs: slice "
+            f"{slice_graph}, big DB {big_graph}, pruned {pruned_graph}; "
+            "paired eager/graph: " + "; ".join(
+                f"{label} frames/s eager {r['frames_per_s']['eager']} graph "
+                f"{r['frames_per_s']['graph']}, host launches "
+                f"{r['host_launches']}, pool {r['pool_mib']:.1f} MiB, "
+                f"capture {r['capture_s']:.3f} s"
+                for label, r in paired.items()))
         log(f"card: {card} — build {db_build['seconds']:.2f} s "
             f"({db_build['tiles_per_s']:.2f} tiles/s), serve check LoD "
             f"{serve['lod']} corner error {serve['corner_err_px']:.3f} px, "

@@ -4,6 +4,7 @@ Everything downstream of detection is fixed capacity + validity mask, as
 in the JAX package, so the port's outputs line up with the reference's
 array for array. The containers are plain dataclasses of tensors;
 ``to_device`` moves any of them (nested included) to another device,
+``upload`` puts host data on a card without waiting for the copy,
 ``select`` takes one item of a batched one, ``fold_lead`` /
 ``unfold_lead`` fold leading (batch) dimensions into one and back, and
 ``take_rows`` and ``pick`` gather rows batch by batch. Every container
@@ -39,6 +40,19 @@ def _map_tensors(obj, fn):
 def to_device(obj, device):
     """Copy a tensor dataclass to `device`."""
     return _map_tensors(obj, lambda t: t.to(device))
+
+
+def upload(x, device, dtype=None) -> torch.Tensor:
+    """`x` (a numpy array or a tensor) as a `dtype` tensor on `device`. A
+    tensor already there is used as it is. Host data bound for a card
+    goes through pinned memory as a non-blocking copy on the current
+    stream: the caller does not wait for it, and the caching host
+    allocator keeps the pinned block until the copy has landed."""
+    t = torch.as_tensor(x, dtype=dtype)
+    device = torch.device(device)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 _CONSTS: dict = {}

@@ -358,7 +358,13 @@ __global__ void knn2_merge_kernel(const int* __restrict__ partial,
                                   float* __restrict__ d0_out,
                                   float* __restrict__ d1_out,
                                   int* __restrict__ i0_out,
-                                  int Q, int n_split) {
+                                  int Q, int n_split,
+                                  unsigned long long* __restrict__ launches) {
+    // The device's own count of kernel 4's launches (one merge a launch),
+    // eager or inside a CUDA graph.
+    if (launches != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+        atomicAdd(launches, 1ULL);
+    }
     const int qi = blockIdx.x * blockDim.x + threadIdx.x;
     if (qi >= Q) return;
     int s0 = partial[qi], s1 = partial[Q + qi], si = partial[2 * Q + qi];
@@ -386,11 +392,12 @@ __global__ void knn2_merge_kernel(const int* __restrict__ partial,
 // Launches the chunk kernel and the merge kernel on `stream`; returns the
 // first CUDA error that is not cudaSuccess. `chunk` must be a multiple of
 // KNN_TILE, at most KNN_MAX_CHUNK, and n_split * chunk must cover M;
-// `partial` holds n_split * 3 * Q ints.
+// `partial` holds n_split * 3 * Q ints. `launches` (a device uint64, or null)
+// gains one for every launch the device runs.
 extern "C" int apds_knn2_hamming(const void* q_words, const void* db_words,
                                  const int* vpop, int* partial, float* d0,
                                  float* d1, int* i0, int Q, int M, int n_split,
-                                 int chunk, void* stream) {
+                                 int chunk, void* launches, void* stream) {
     if (Q < 1 || M < 0 || n_split < 1 || n_split > 65535 || chunk < KNN_TILE ||
         chunk > KNN_MAX_CHUNK || chunk % KNN_TILE != 0 ||
         (long long)n_split * chunk < M) {
@@ -406,7 +413,8 @@ extern "C" int apds_knn2_hamming(const void* q_words, const void* db_words,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     knn2_merge_kernel<<<(Q + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-        partial, (const uint4*)q_words, d0, d1, i0, Q, n_split);
+        partial, (const uint4*)q_words, d0, d1, i0, Q, n_split,
+        (unsigned long long*)launches);
     return (int)cudaGetLastError();
 }
 

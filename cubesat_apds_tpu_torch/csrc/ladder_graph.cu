@@ -18,6 +18,7 @@
 // them ever run in the same launch.
 
 #include <cuda_runtime.h>
+#include <stdlib.h>
 
 __global__ void ladder_select_kernel(const int* __restrict__ idx,
                                      cudaGraphConditionalHandle handle) {
@@ -97,4 +98,32 @@ extern "C" int apds_graph_destroy(void* graph, void* exec) {
     cudaError_t e = cudaGraphExecDestroy((cudaGraphExec_t)exec);
     cudaError_t g = cudaGraphDestroy((cudaGraph_t)graph);
     return (int)(e != cudaSuccess ? e : g);
+}
+
+// Counts the nodes of `graph` (one level, child graphs not entered):
+// counts[0] all nodes, [1] kernel nodes, [2] memcpy nodes, [3] memset
+// nodes. Used to report how many device kernels one replay of a captured
+// step runs, which a profiler's trace does not attribute reliably.
+extern "C" int apds_graph_node_counts(void* graph, int* counts) {
+    if (!graph || !counts) return (int)cudaErrorInvalidValue;
+    size_t n = 0;
+    cudaError_t e = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &n);
+    if (e != cudaSuccess) return (int)e;
+    counts[0] = (int)n;
+    counts[1] = counts[2] = counts[3] = 0;
+    if (n == 0) return 0;
+    cudaGraphNode_t* nodes =
+        (cudaGraphNode_t*)malloc(n * sizeof(cudaGraphNode_t));
+    if (!nodes) return (int)cudaErrorMemoryAllocation;
+    e = cudaGraphGetNodes((cudaGraph_t)graph, nodes, &n);
+    for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+        cudaGraphNodeType type;
+        e = cudaGraphNodeGetType(nodes[i], &type);
+        if (e != cudaSuccess) break;
+        if (type == cudaGraphNodeTypeKernel) ++counts[1];
+        if (type == cudaGraphNodeTypeMemcpy) ++counts[2];
+        if (type == cudaGraphNodeTypeMemset) ++counts[3];
+    }
+    free(nodes);
+    return (int)e;
 }

@@ -18,7 +18,8 @@ prefix of the outputs (csrc/ladder_graph.cu assembles the graph; torch
 host, so a warmed call only queues work.
 
 One graph a key (device, stream, batch, stack shape, capacity, modes,
-ladder), in a bounded LRU (`LADDER_GRAPHS` of them); an evicted graph
+ladder), in a bounded LRU (`LADDER_GRAPHS` of them, core/graph_cache.py's
+cache, which the serving step's graphs share); an evicted graph
 frees its memory pool, and `clear_ladder_graphs()` drops them all. The
 first call of a key warms every rung up eagerly on a side stream, then
 captures, and may synchronise; a warm call copies its inputs into the
@@ -30,13 +31,14 @@ unchanged by the next call.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import threading
 import time
 
 import torch
 
+from cubesat_apds_tpu_torch.core.graph_cache import (
+    GraphCache, close_all as _close_all, pool_bytes)
 from cubesat_apds_tpu_torch.ops.kernels import build, sample_kernel
 
 LADDER_GRAPHS = 8
@@ -60,60 +62,7 @@ def ladder_key(device, stream: int, batch: int, packed_shape, capacity: int,
             config.hybrid_subcells, tuple(buckets))
 
 
-class GraphCache:
-    """A bounded LRU of ladder graphs. `make_room` evicts down to one
-    below the bound before a capture, `clear` empties the cache; both
-    return the entries they drop, for the caller to close."""
-
-    def __init__(self, size: int):
-        self.size = size
-        self._entries: collections.OrderedDict = collections.OrderedDict()
-        self._lock = threading.Lock()
-
-    def __len__(self) -> int:
-        return len(self._entries)
-
-    def keys(self) -> list:
-        with self._lock:
-            return list(self._entries)
-
-    def get(self, key):
-        with self._lock:
-            entry = self._entries.get(key)
-            if entry is not None:
-                self._entries.move_to_end(key)
-            return entry
-
-    def make_room(self) -> list:
-        with self._lock:
-            evicted = []
-            while len(self._entries) >= self.size:
-                evicted.append(self._entries.popitem(last=False)[1])
-            return evicted
-
-    def put(self, key, entry) -> None:
-        with self._lock:
-            self._entries[key] = entry
-            self._entries.move_to_end(key)
-
-    def clear(self) -> list:
-        with self._lock:
-            entries = list(self._entries.values())
-            self._entries.clear()
-            return entries
-
-
 _GRAPHS = GraphCache(LADDER_GRAPHS)
-
-
-def _close_all(entries) -> None:
-    """Close evicted or cleared graphs; a card's freed pools go back to
-    the device at once."""
-    on_card = False
-    for entry in entries:
-        on_card |= entry.close()
-    if on_card:
-        torch.cuda.empty_cache()
 
 
 def clear_ladder_graphs() -> int:
@@ -127,7 +76,7 @@ def clear_ladder_graphs() -> int:
 def ladder_graphs() -> list:
     """The cached graphs, least recently used first (their `key`,
     `pool_bytes`, `warmup_launches`, `capture_s` and `last_rung()`)."""
-    return [_GRAPHS.get(k) for k in _GRAPHS.keys()]
+    return _GRAPHS.entries()
 
 
 class LadderGraph:
@@ -193,9 +142,7 @@ class LadderGraph:
         bodies = {kb: capture(lambda kb=kb: self._run_stage(kb))
                   for kb in sorted(self.buckets, reverse=True)}
         self._bodies = [bodies[kb] for kb in self.buckets]
-        self.pool_bytes = sum(
-            seg["total_size"] for seg in torch.cuda.memory_snapshot()
-            if tuple(seg["segment_pool_id"]) == tuple(pool))
+        self.pool_bytes = pool_bytes(pool)
 
         lib = build.load_kernels().lib
         bodies = (ctypes.c_void_p * len(self._bodies))(

@@ -16,6 +16,7 @@ from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
     bmm, cholesky_solve, det3x3, eigh3x3, eigh_smallest, lstsq_normal,
     polar_rotation)
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import matrix_to_rodrigues
+from cubesat_apds_tpu_torch.ops.kernels.procrustes import procrustes_rotation
 
 # Control-point distance constraint index pairs (6 pairs of 4 points).
 _PAIRS = np.array([(0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3)])
@@ -85,24 +86,17 @@ def _pair_diffs(pts4):
 
 def _procrustes(src, dst, w, fast: bool = False):
     """Weighted rigid alignment R, t minimizing ||R·src + t − dst||².
-    fast=True: Newton polar iteration instead of the SVD."""
+    fast=True: Newton polar iteration instead of the SVD. A non-finite S
+    (a failed β case) yields a NaN rotation that the caller's finite-error
+    check discards."""
     wsum = w.sum(-1).clamp(min=1e-12)[..., None]
     mu_s = (src * w[..., None]).sum(-2) / wsum
     mu_d = (dst * w[..., None]).sum(-2) / wsum
     S = bmm(_mT((dst - mu_d[..., None, :]) * w[..., None]),
             src - mu_s[..., None, :])
-    if fast:
-        R = polar_rotation(S)
-    else:
-        # A non-finite S (a failed β case) yields a NaN rotation that the
-        # caller's finite-error check discards; torch's SVD would raise.
-        finite = torch.isfinite(S).flatten(-2).all(-1)[..., None, None]
-        eye = torch.eye(3, dtype=S.dtype, device=S.device)
-        U, _, Vt = torch.linalg.svd(torch.where(finite, S, eye))
-        d = torch.sign(det3x3(bmm(U, Vt)))
-        one = torch.ones_like(d)
-        D = torch.diag_embed(torch.stack([one, one, d], dim=-1))
-        R = torch.where(finite, bmm(bmm(U, D), Vt), torch.nan)
+    # fast: Newton polar iteration; exact: the SVD's rotation (a kernel on
+    # the card, its plain twin on the CPU).
+    R = polar_rotation(S) if fast else procrustes_rotation(S)
     t = mu_d - bmm(R, mu_s[..., None])[..., 0]
     return R, t
 

@@ -42,8 +42,9 @@ _SIGNATURES = {
     "apds_sample_patches": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                             _P),
     # q_words, db_words, vpop, partial, d0, d1, i0, Q, M, n_split, chunk,
-    # stream
-    "apds_knn2_hamming": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # launch counter (device int64, or null), stream
+    "apds_knn2_hamming": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                          _P),
     # info (int32 [8], host)
     "apds_knn2_info": (_P,),
     # device, head graph, body graphs (host array), n, idx, graph and exec
@@ -53,6 +54,10 @@ _SIGNATURES = {
     "apds_graph_launch": (_P, _P),
     # graph, exec
     "apds_graph_destroy": (_P, _P),
+    # graph, counts (int32 [4], host): nodes, kernels, copies, memsets
+    "apds_graph_node_counts": (_P, _P),
+    # S, R, n, launch counter (device int64, or null), stream
+    "apds_procrustes3": (_P, _P, _I, _P, _P),
 }
 
 
@@ -175,3 +180,48 @@ def on_device(dev):
 
 def ptr(t) -> int:
     return t.data_ptr()
+
+
+_COUNTERS: dict = {}
+
+
+def _card(dev) -> str:
+    import torch
+
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return str(dev)
+
+
+def launch_counter(kernel: str, dev):
+    """The int64 tensor on `dev` that `kernel`'s first thread adds one to
+    at every launch the device runs, eager or replayed from a CUDA graph:
+    the kernel's launch count (`device_launches` reads it). Made at the
+    kernel's first launch on `dev`, which must not be under a graph
+    capture."""
+    import torch
+
+    key = (kernel, _card(dev))
+    t = _COUNTERS.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{kernel}: the first launch on {dev} is "
+                               "under a CUDA-graph capture; launch once "
+                               "before capturing")
+        t = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize(dev)        # zeroed for every stream, once
+        _COUNTERS[key] = t
+    return t
+
+
+def device_launches(kernel: str, dev) -> int:
+    """`kernel`'s launches on `dev` so far, as the device counted them,
+    once the device's queued work is done (a synchronising call)."""
+    import torch
+
+    t = _COUNTERS.get((kernel, _card(dev)))
+    if t is None:
+        return 0
+    torch.cuda.synchronize(t.device)
+    return int(t)

@@ -134,17 +134,21 @@ def knn2_hamming_cuda(q_words, db_words, vpop):
     nqb, n_split, chunk = split_plan(q, m, sms)
     partial = torch.empty((n_split, 3, q), dtype=torch.int32, device=dev)
     lib = build.load_kernels().lib
+    counter = build.launch_counter("knn2_hamming", dev)
     with build.on_device(dev):
         err = lib.apds_knn2_hamming(
             build.ptr(q_words), build.ptr(db_words), build.ptr(vpop),
             build.ptr(partial), build.ptr(d0), build.ptr(d1), build.ptr(i0),
-            q, m, n_split, chunk, build.stream_of(q_words))
+            q, m, n_split, chunk, build.ptr(counter),
+            build.stream_of(q_words))
     build.check_launch("apds_knn2_hamming", err)
-    knn2_hamming_cuda.launches += 1
     return d0, d1, i0
 
 
-knn2_hamming_cuda.launches = 0
+def device_launches(dev) -> int:
+    """Kernel 4's launches on `dev` so far, as the device counted them
+    (eager or replayed from a CUDA graph); a synchronising call."""
+    return build.device_launches("knn2_hamming", dev)
 
 
 def knn2_fused(q_words, db_words, db_valid=None, *, block: int = 65536):

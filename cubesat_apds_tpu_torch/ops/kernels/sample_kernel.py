@@ -36,42 +36,10 @@ def sample_patches_plain(packed, level_hw, lvl, iy, ix):
     return packed.reshape(L * H * W, C)[lin].to(torch.float32)
 
 
-_DEVICE_COUNTERS: dict = {}
-
-
-def device_launch_counter(dev) -> torch.Tensor:
-    """The int64 tensor on `dev` that kernel B's first thread adds one to
-    at every launch the device runs, eager or replayed from a CUDA graph:
-    kernel B's launch count (`device_launches` reads it). Made at the
-    first launch on `dev`, which must not be under a graph capture."""
-    key = _card(dev)
-    t = _DEVICE_COUNTERS.get(key)
-    if t is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("sample_patches_cuda: the first launch on "
-                               f"{dev} is under a CUDA-graph capture; "
-                               "launch once before capturing")
-        t = torch.zeros((), dtype=torch.int64, device=dev)
-        torch.cuda.synchronize(dev)        # zeroed for every stream, once
-        _DEVICE_COUNTERS[key] = t
-    return t
-
-
-def _card(dev) -> str:
-    dev = torch.device(dev)
-    if dev.index is None:
-        dev = torch.device(dev.type, torch.cuda.current_device())
-    return str(dev)
-
-
 def device_launches(dev) -> int:
-    """Kernel B's launches on `dev` so far, as the device counted them,
-    once the device's queued work is done (a synchronising call)."""
-    t = _DEVICE_COUNTERS.get(_card(dev))
-    if t is None:
-        return 0
-    torch.cuda.synchronize(t.device)
-    return int(t)
+    """Kernel B's launches on `dev` so far, as the device counted them
+    (eager or replayed from a CUDA graph); a synchronising call."""
+    return build.device_launches("sample_patches", dev)
 
 
 def sample_patches_cuda(packed, level_hw, lvl, iy, ix):
@@ -105,7 +73,7 @@ def sample_patches_cuda(packed, level_hw, lvl, iy, ix):
     if K == 0 or S == 0:
         return out
     lib = build.load_kernels().lib
-    counter = device_launch_counter(dev)
+    counter = build.launch_counter("sample_patches", dev)
     with build.on_device(dev):
         err = lib.apds_sample_patches(
             build.ptr(packed), build.ptr(level_hw), build.ptr(lvl),

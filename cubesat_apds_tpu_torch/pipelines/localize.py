@@ -24,7 +24,11 @@ The back half (`localize_from_features`, `localize_from_matches`,
 once, batch-first: features with leading batch dimensions run match,
 RANSAC homography and PnP-RANSAC of every frame as single passes (the
 JAX package's vmapped batch steps); a lone frame is the case with no
-leading dimension.
+leading dimension. The entry points and the stream run it through
+`back_half` / `pruned_back_half`: on the card one CUDA graph a key
+(pipelines/step_graph.py, the JAX package's `jit`), on the CPU the
+functions themselves. A host frame reaches the card through pinned
+memory without a wait (`core.types.upload`).
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ from cubesat_apds_tpu_torch.core.config import (
     MAX_POINTS, MatchConfig, PipelineConfig)
 from cubesat_apds_tpu_torch.core.types import (
     CameraModel, Correspondences, Features, HomographyResult, Keypoints,
-    Matches, PoseSolution, device_const, fold_lead, to_device, unfold_lead)
+    Matches, PoseSolution, device_const, fold_lead, to_device, unfold_lead,
+    upload)
 from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
 from cubesat_apds_tpu_torch.ops.geometry.homography import (
     find_homography_ransac)
@@ -48,6 +53,7 @@ from cubesat_apds_tpu_torch.ops.geometry.pnp import solve_pnp_ransac
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import rodrigues_to_matrix
 from cubesat_apds_tpu_torch.ops.match import (
     db_rows, knn_match, matched_points)
+from cubesat_apds_tpu_torch.pipelines import step_graph
 from cubesat_apds_tpu_torch.store.feature_store import device_block
 
 
@@ -235,17 +241,30 @@ def localize_from_matches(kp: Keypoints, matches: Matches, db_xy, db_obj,
                               matches=matches)
 
 
+def back_half(feats: Features, db: DeviceDb, camera: CameraModel,
+              config: PipelineConfig, solve_pose: bool) -> LocalizationResult:
+    """`localize_from_features` as the step runs it: on the card through
+    this key's CUDA graph (pipelines/step_graph.py), on the CPU as it
+    is."""
+    return step_graph.run(localize_from_features, feats, db, camera, config,
+                          solve_pose)
+
+
 def localize_frame_jit(frame, db: DeviceDb, camera: CameraModel,
                        config: PipelineConfig = PipelineConfig(),
                        solve_pose: bool = False) -> LocalizationResult:
     """frame [H, W] float32 grayscale → homography (+ pose) against `db`,
     on the DB's device: AKAZE, kNN-2 ratio match, RANSAC homography and
     optionally PnP-RANSAC against the DB's world points. The name and the
-    arguments are the JAX package's; here the step runs eagerly."""
-    frame = torch.as_tensor(frame, dtype=torch.float32).to(db.device)
+    arguments are the JAX package's. A host frame is uploaded without a
+    wait, AKAZE runs eagerly (the capacity ladder in its own graph), and
+    on the card the back half replays one CUDA graph a key, as the JAX
+    package's jit dispatches one executable; a warmed step reads nothing
+    back to the host."""
+    frame = upload(frame, db.device, torch.float32)
     feats = detect_and_compute(frame, config.akaze)
-    return localize_from_features(feats, db, to_device(camera, db.device),
-                                  config, solve_pose)
+    return back_half(feats, db, to_device(camera, db.device), config,
+                     solve_pose)
 
 
 def localize_frame(frame, store, camera: CameraModel, lod: int = 0,
@@ -585,6 +604,16 @@ def _pruned_back_half(feats: Features, frame_hw, pdb: PrunedDeviceDb,
         n_window=win.n_window, overflow=win.overflow, sel=win.sel)
 
 
+def pruned_back_half(feats: Features, frame_hw, pdb: PrunedDeviceDb,
+                     camera: CameraModel, config: PipelineConfig,
+                     solve_pose: bool, margin: float
+                     ) -> PrunedLocalizationResult:
+    """`_pruned_back_half` as the step runs it: on the card through this
+    key's CUDA graph (pipelines/step_graph.py), on the CPU as it is."""
+    return step_graph.run(_pruned_back_half, feats, tuple(frame_hw), pdb,
+                          camera, config, solve_pose, margin)
+
+
 def localize_frame_pruned_jit(frame, pdb: PrunedDeviceDb,
                               camera: CameraModel,
                               config: PipelineConfig = PipelineConfig(),
@@ -593,18 +622,19 @@ def localize_frame_pruned_jit(frame, pdb: PrunedDeviceDb,
                               ) -> PrunedLocalizationResult:
     """Pruned localization on the pruned DB's device: detect once, coarse
     fix, spatial window, fine match on the window's rows (the JAX
-    package's name and arguments).
+    package's name and arguments; on the card the back half replays one
+    CUDA graph a key, as `localize_frame_jit`'s does).
 
     When the coarse fix fails, `coarse_ok` is False and the fine result is
     meaningless: callers fall back to `localize_frame_pruned_fallback_jit`.
     If more rows fall in the window's cells than `window_capacity`,
     `overflow` is set and the excess rows are dropped in row order.
     """
-    frame = torch.as_tensor(frame, dtype=torch.float32).to(pdb.device)
+    frame = upload(frame, pdb.device, torch.float32)
     feats = detect_and_compute(frame, config.akaze)
-    return _pruned_back_half(feats, tuple(frame.shape), pdb,
-                             to_device(camera, pdb.device), config,
-                             solve_pose, margin)
+    return pruned_back_half(feats, tuple(frame.shape), pdb,
+                            to_device(camera, pdb.device), config,
+                            solve_pose, margin)
 
 
 def localize_frame_pruned_fallback_jit(frame, pdb: PrunedDeviceDb,

@@ -40,11 +40,11 @@ import numpy as np
 import torch
 
 from cubesat_apds_tpu_torch.core.config import PipelineConfig
-from cubesat_apds_tpu_torch.core.types import CameraModel, to_device
+from cubesat_apds_tpu_torch.core.types import CameraModel, to_device, upload
 from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute_batch
 from cubesat_apds_tpu_torch.pipelines.localize import (
-    PrunedDeviceDb, _pruned_back_half, localize_frame_pruned_fallback_jit,
-    localize_from_features, resident_db)
+    PrunedDeviceDb, back_half, localize_frame_pruned_fallback_jit,
+    pruned_back_half, resident_db)
 from cubesat_apds_tpu_torch.utils.profiling import StageTimes
 
 _MARGIN = 0.25
@@ -164,16 +164,16 @@ class StreamingLocalizer:
             return _pack_outputs(homog, n_match, n_kp, pose)
         feats = detect_and_compute_batch(frames, self.config.akaze)
         if self._pruned:
-            pr = _pruned_back_half(feats, tuple(frames.shape[1:]), self.db,
-                                   self.camera, self.config, self.solve_pose,
-                                   _MARGIN)
+            pr = pruned_back_half(feats, tuple(frames.shape[1:]), self.db,
+                                  self.camera, self.config, self.solve_pose,
+                                  _MARGIN)
             r = pr.result
             flags = torch.stack([pr.coarse_ok, pr.overflow], dim=-1).float()
             return torch.cat([_pack_outputs(r.homography, r.num_matches,
                                             r.num_keypoints, r.pose),
                               flags], dim=-1)
-        r = localize_from_features(feats, self.db, self.camera, self.config,
-                                   self.solve_pose)
+        r = back_half(feats, self.db, self.camera, self.config,
+                      self.solve_pose)
         return _pack_outputs(r.homography, r.num_matches, r.num_keypoints,
                              r.pose)
 
@@ -203,9 +203,8 @@ class StreamingLocalizer:
         host = torch.tensor(f)
         if self._copy_stream is None:
             return host.to(self.device), None
-        host = host.pin_memory()
         with torch.cuda.stream(self._copy_stream):
-            dev = host.to(self.device, non_blocking=True)
+            dev = upload(host, self.device)
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
         return dev, ready

@@ -152,9 +152,10 @@ def test_batch_ladder_matches_jax(jax_ref, mode, monkeypatch):
     on the keypoints whose angles agree to 1e-4. Its angles are the
     port's fast orientation's bit for bit (compute_orientations on JAX's
     keypoints and stack), and that agrees with JAX's on 97.3% of this
-    scene's 1,275 keypoints (34 sector flips at near-ties, none from the
-    ladder), below the 99% the modes test holds on its 128² frame: held
-    here at ≥ 97%."""
+    scene's 1,275 keypoints (34 sector flips, none from the ladder: each
+    a tie between windows within float32 rounding of their sums,
+    test_fast_orientation_flips_are_window_ties), below the 99% the modes
+    test holds on its 128² frame: held here at ≥ 97%."""
     buckets = jax_ref["buckets"]
     assert buckets == takaze._bucket_sizes(CAP, 8) == (256, 512, 768)
     counts = np.asarray(jax_ref["kps"].valid).sum(-1)
@@ -190,6 +191,56 @@ def test_batch_ladder_matches_jax(jax_ref, mode, monkeypatch):
         assert torch.equal(angle, direct)
         assert close.mean() >= 0.97
         assert bits[close].all()
+
+
+def test_fast_orientation_flips_are_window_ties(jax_ref):
+    """Every keypoint where the port's fast angle and JAX's jitted ladder's
+    differ by more than 1e-4 rad (34 of this scene's 1,275) is a tie
+    between sliding windows: on JAX's own samples, with the window sums
+    recomputed in float64, the two windows the packages chose hold the
+    largest magnitude to within 4 float32 ulps (relative 5e-7; the
+    largest gap is 2.4e-7, and most are exact ties of mirror-image
+    windows at box corners). So the flips come from the order of float32
+    window sums, which picks among tied windows, not from a fault of the
+    port: a reference-side rounding difference, as the JAX package's own
+    jitted and eager orientations differ on 2 of these keypoints."""
+    from cubesat_apds_tpu_torch.ops.features.orientation import (
+        _GAUSS_W_FAST, _WINDOW_STARTS, orientation_sample_coords)
+
+    kps = convert.keypoints_from(jax_ref["kps"], device="cpu")
+    packed = _bf16(jax_ref["packed"])
+    level_hw = torch.from_numpy(np.array(jax_ref["level_hw"]))
+    got = torch.stack([compute_orientations(
+        packed[b], level_hw, kps.xy[b], kps.size[b], kps.class_id[b],
+        kps.octave[b], kps.valid[b], mode="fast") for b in range(3)]).numpy()
+    want = np.asarray(jax_ref["fast"][0])
+    d = np.abs(got - want)
+    d = np.minimum(d, 2 * np.pi - d)
+    flips = np.argwhere((d > 1e-4) & kps.valid.numpy())
+    assert 0 < len(flips) <= 0.03 * int(kps.valid.sum())
+    w = _GAUSS_W_FAST.astype(np.float64)
+    starts = _WINDOW_STARTS.astype(np.float64)
+    for b, k in flips:
+        iy, ix = orientation_sample_coords(
+            kps.xy[b, k:k + 1], kps.size[b, k:k + 1],
+            kps.class_id[b, k:k + 1], kps.octave[b, k:k + 1], "fast")
+        lvl = int(kps.class_id[b, k].clamp(0, packed.shape[1] - 1))
+        h, wd = level_hw[lvl].tolist()
+        vals = packed[b, lvl, iy[0].clamp(0, h - 1),
+                      ix[0].clamp(0, wd - 1)].double().numpy()
+        rx, ry = vals[:, 1] * w, vals[:, 2] * w
+        ang = np.mod(np.arctan2(ry, rx), 2 * np.pi)
+        in_win = np.mod(ang[None] - starts[:, None], 2 * np.pi) < np.pi / 3
+        sx, sy = in_win @ rx, in_win @ ry
+        mag = sx * sx + sy * sy
+        centre = np.mod(np.arctan2(sy, sx), 2 * np.pi)
+
+        def window(a):
+            e = np.abs(centre - a)
+            return int(np.minimum(e, 2 * np.pi - e).argmin())
+
+        for a in (got[b, k], want[b, k]):
+            assert mag[window(a)] >= (1 - 5e-7) * mag.max(), (b, k)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
