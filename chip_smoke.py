@@ -944,13 +944,18 @@ def procrustes_phase(torch, dev, path_S, launches):
 
 
 def graph_pair_phase(torch, dev, loc10k, loc_big, frame_t):
-    """Paired runs in one call of the serving step with its back half
-    eager (`localize_from_features`, the function the graph captures) and
-    graphed (`back_half`): the 10k slice at B = 1 and 8 and the 1M DB at
-    B = 8, in turns eager, graph, graph, eager; each turn the median of 6
-    synchronised steps (front half + back half) on the host clock. Prints
-    frames/s, host launches a step, the graph's nodes, pool MiB and
-    capture seconds, beside the card."""
+    """Paired runs in one call of the serving step in three legs: "eager"
+    (the front half `_front_end` and the back half
+    `localize_from_features` eager, the functions the graphs capture),
+    "back" (the front half eager, the back half graphed: the step as it
+    stood before the front half had its graph) and "both" (the front and
+    the back half graphed: the step as the entry points run it). The 10k
+    slice at B = 1 and 8 runs all three legs in turns eager, back, both,
+    both, back, eager; the 1M DB at B = 8 the first two, in turns eager,
+    back, back, eager. Each turn is the median of 6 synchronised steps on
+    the host clock. The front half's graph of B = 8 is held to the eager
+    front end first. Prints frames/s, host launches a step, the back
+    graph's nodes, pool MiB and capture seconds, beside the card."""
     from cubesat_apds_tpu_torch.ops.features.akaze import (
         detect_and_compute, detect_and_compute_batch)
     from cubesat_apds_tpu_torch.pipelines import step_graph
@@ -961,25 +966,34 @@ def graph_pair_phase(torch, dev, loc10k, loc_big, frame_t):
     lone = frame_t.to(dev)
     batch = torch.stack([torch.roll(lone, (k, 2 * k), (0, 1))
                          for k in range(STREAM_BATCH)])
-    cases = [("10k slice, B = 1", loc10k, lone, 1),
+    front_b8 = front_against_eager(
+        torch, f"paired 512² B = {STREAM_BATCH}", batch, config.akaze)
+    cases = [("10k slice, B = 1", loc10k, lone, 1, True),
              (f"10k slice, B = {STREAM_BATCH}", loc10k, batch,
-              STREAM_BATCH),
-             (f"1M DB, B = {STREAM_BATCH}", loc_big, batch, STREAM_BATCH)]
+              STREAM_BATCH, True),
+             (f"1M DB, B = {STREAM_BATCH}", loc_big, batch, STREAM_BATCH,
+              False)]
     out = {}
-    for label, loc, x, b in cases:
+    for label, loc, x, b, third in cases:
         def front(x=x, b=b):
             return (detect_and_compute(x, config.akaze) if b == 1 else
                     detect_and_compute_batch(x, config.akaze))
 
         steps = {
-            "eager": lambda loc=loc, front=front: localize_from_features(
-                front(), loc.db, loc.camera, config, True),
-            "graph": lambda loc=loc, front=front: back_half(
-                front(), loc.db, loc.camera, config, True)}
-        steps["graph"]()
+            "eager": lambda loc=loc, x=x: localize_from_features(
+                eager_features(torch, x, config.akaze), loc.db, loc.camera,
+                config, True),
+            "back": lambda loc=loc, x=x: back_half(
+                eager_features(torch, x, config.akaze), loc.db, loc.camera,
+                config, True)}
+        if third:
+            steps["both"] = lambda loc=loc, front=front: back_half(
+                front(), loc.db, loc.camera, config, True)
+        steps["back"]()
         entry = step_graph.step_graphs()[-1]
-        secs = {"eager": [], "graph": []}
-        for mode in ("eager", "graph", "graph", "eager"):
+        turns = list(steps) + list(steps)[::-1]
+        secs = {m: [] for m in steps}
+        for mode in turns:
             steps[mode]()
             torch.cuda.synchronize()
             t = []
@@ -995,12 +1009,14 @@ def graph_pair_phase(torch, dev, loc10k, loc_big, frame_t):
              "graph_nodes": entry.nodes,
              "pool_mib": entry.pool_bytes / 2 ** 20,
              "capture_s": entry.capture_s, "warmup_s": entry.warmup_s}
-        log(f"paired {label}: frames/s eager {fps['eager']}, graph "
-            f"{fps['graph']} (turns eager, graph, graph, eager); host "
-            f"launches a step {host}; the graph {entry.nodes}, pool "
+        log(f"paired {label}, {card_line()}: frames/s "
+            + ", ".join(f"{m} {fps[m]}" for m in fps)
+            + f" (turns {', '.join(turns)}); host launches a step {host}; "
+            f"the back half's graph {entry.nodes}, pool "
             f"{r['pool_mib']:.1f} MiB, warm-up {entry.warmup_s:.3f} s, "
             f"capture {entry.capture_s:.3f} s")
         out[label] = r
+    out[f"10k slice, B = {STREAM_BATCH}"]["front"] = front_b8
     return out
 
 
@@ -1068,6 +1084,83 @@ def graph_against_eager(torch, label, graphed, eager):
             "graph_ms": graph_ms, "eager_ms": eager_ms}
 
 
+def eager_features(torch, x, config):
+    """detect_and_compute(_batch)'s features with the front half eager:
+    `_front_end` called directly (the function the front half's graph
+    captures), then the ladder as on the path. `x` [H, W] or [B, H, W]
+    on the card."""
+    import dataclasses
+
+    from cubesat_apds_tpu_torch.core.types import Features, select
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        _front_end, adaptive_orient_describe)
+
+    xb = x[None] if x.dim() == 2 else x
+    kps, packed, level_hw, grids = _front_end(xb, config, config.capacity,
+                                              None)
+    angle, desc = adaptive_orient_describe(kps, packed, level_hw, config,
+                                           grids)
+    f = Features(keypoints=dataclasses.replace(kps, angle=angle),
+                 descriptors=desc)
+    return select(f, 0) if x.dim() == 2 else f
+
+
+def front_against_eager(torch, label, x, config, capacity=None,
+                        kcontrast=None):
+    """The front half through its CUDA graph at the key of (`x` [B, H, W]
+    on the card, `config`, `capacity`, `kcontrast`), as
+    detect_and_compute_batch calls it, against the eager `_front_end` on
+    the same frames: every output tensor bit for bit. The graph's pool is
+    held to at most 1.5x the eager front end's own peak (the
+    max_memory_allocated delta of one eager call at the key) plus 64 MiB.
+    Prints the key's graph: its nodes, pool, the eager peak and seconds."""
+    from cubesat_apds_tpu_torch.core import step_graph as core_graph
+    from cubesat_apds_tpu_torch.ops.features import akaze
+
+    args = (x, config, capacity or config.capacity, kcontrast)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = akaze._front_end(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = akaze.front_half(*args)
+    entry = akaze.front_graphs()[-1]                 # the key just used
+    torch.cuda.synchronize()
+    lg, lw = core_graph.leaves(got), core_graph.leaves(want)
+    same = [torch.equal(a, b) for a, b in zip(lg, lw)]
+    limit = 1.5 * peak + 64 * 2 ** 20
+    log(f"{label}: graphed front half against eager _front_end on the same "
+        f"frames: {sum(same)} of {len(lw)} output tensors bit-equal; the "
+        f"graph: {entry.nodes} nodes, pool {entry.pool_bytes / 2 ** 20:.1f} "
+        f"MiB beside the eager front end's peak {peak / 2 ** 20:.1f} MiB "
+        f"(limit {limit / 2 ** 20:.1f} MiB), warm-up {entry.warmup_s:.3f} s "
+        f"({entry.warmup_launches['fed_cycle']} kernel-A launches, peak "
+        f"{entry.warmup_peak_bytes / 2 ** 20:.1f} MiB: the pool's first "
+        f"block), capture {entry.capture_s:.3f} s")
+    check(len(lg) == len(lw) and all(same),
+          f"{label}: the graphed front half equals eager _front_end bit for "
+          "bit")
+    check(entry.pool_bytes <= limit,
+          f"{label}: the front graph's pool within 1.5x the eager front "
+          "end's peak plus 64 MiB")
+    return {"nodes": entry.nodes, "pool_mib": entry.pool_bytes / 2 ** 20,
+            "eager_peak_mib": peak / 2 ** 20, "warmup_s": entry.warmup_s,
+            "capture_s": entry.capture_s}
+
+
+def graph_pools_mib():
+    """MiB held by every cached graph's pool: the front half's, the
+    ladder's and the back half's."""
+    from cubesat_apds_tpu_torch.ops.features import akaze, ladder
+    from cubesat_apds_tpu_torch.pipelines import step_graph
+
+    return {name: sum(e.pool_bytes for e in entries) / 2 ** 20
+            for name, entries in (("front", akaze.front_graphs()),
+                                  ("ladder", ladder.ladder_graphs()),
+                                  ("back", step_graph.step_graphs()))}
+
+
 def refit_matrices(torch, run):
     """The cross-covariances S [N, 3, 3] that the refit's exact Procrustes
     takes during `run()` (an eager back half): the Procrustes kernel's
@@ -1129,10 +1222,10 @@ def slice_phase(torch, dev, profile_dir):
     torch.cuda.synchronize()
     counted = _read_launches()
     launches = {k: counted[k] for k in ("fed_cycle", "sample_patches")}
-    log(f"launches in one frame: {launches} (kernel B on its device "
-        f"counter, inside the ladder's graph; {counted.warmup} of them in "
-        "warm-ups)")
-    check(launches == {"fed_cycle": 15,
+    log(f"launches in one frame: {launches} (kernels A and B on their "
+        f"device counters, inside the front half's and the ladder's graphs; "
+        f"{counted.warmup_a} and {counted.warmup} of them in warm-ups)")
+    check(launches == {"fed_cycle": 15 + counted.warmup_a,
                        "sample_patches": 2 + counted.warmup},
           "15 kernel-A and 2 kernel-B launches per frame")
     check(counted.procrustes == 1 + counted.warmups["procrustes3"],
@@ -1206,6 +1299,12 @@ def slice_phase(torch, dev, profile_dir):
     path_S = refit_matrices(torch, lambda: localize_from_features(
         feats, gpu.db, gpu.camera, config, True))
     no_sync(torch, lambda: gpu.localize(frame_t), "10k slice (a host frame)")
+    graph["front"] = front_against_eager(
+        torch, "10k slice, 512² B = 1", frame_t.to(dev)[None], config.akaze)
+    graph["host_launches"] = host_launches(torch, lambda: gpu.localize(
+        frame_t))
+    log(f"10k slice: {graph['host_launches']} host launches in a warmed "
+        "step (the profiler's runtime events)")
 
     step_s, event_ms = [], []
     for _ in range(10):
@@ -1230,11 +1329,11 @@ def slice_phase(torch, dev, profile_dir):
     return launches, med, gpu, frame_t, path_S, graph
 
 
-# Kernels B, 4 and the Procrustes kernel count their launches on the
-# device (eager or replayed from a CUDA graph: the ladder's and the
-# serving step's): each count is the change of its counter since the last
-# _reset_launches(), the warm-ups of graphs captured in the window
-# included (the read's `warmups` say how many of them).
+# Kernels A, B, 4 and the Procrustes kernel count their launches on the
+# device (eager or replayed from a CUDA graph: the front half's, the
+# ladder's and the back half's): each count is the change of its counter
+# since the last _reset_launches(), the warm-ups of graphs captured in the
+# window included (the read's `warmups` say how many of them).
 _BASE = {}
 
 
@@ -1243,8 +1342,10 @@ class _Launches(dict):
     kernel's count is `procrustes`, read by the phases that hold the
     serving step's back half to it); `warmups`: each device-counted
     kernel's launches in the warm-ups of graphs captured in the window
-    (part of its count), and `warmup` kernel B's."""
+    (part of its count), `warmup` kernel B's (ladder graphs) and
+    `warmup_a` kernel A's (front-half graphs)."""
     warmup = 0
+    warmup_a = 0
     procrustes = 0
     warmups = {}
 
@@ -1254,28 +1355,27 @@ def _device_counts():
     from cubesat_apds_tpu_torch.ops.kernels import build
     from cubesat_apds_tpu_torch.pipelines import step_graph
     counts = {k: build.device_launches(k, "cuda")
-              for k in ("sample_patches", "knn2_hamming", "procrustes3")}
+              for k in ("fed_cycle", "sample_patches", "knn2_hamming",
+                        "procrustes3")}
     warm = dict(step_graph.warmup_launches(),
                 sample_patches=ladder.warmup_launches())
     return counts, warm
 
 
 def _reset_launches():
-    from cubesat_apds_tpu_torch.ops.kernels import diffusion
-    diffusion.fed_cycle_cuda.launches = 0
     _BASE["counts"], _BASE["warm"] = _device_counts()
 
 
 def _read_launches():
-    from cubesat_apds_tpu_torch.ops.kernels import diffusion
     counts, warm = _device_counts()
     d = {k: counts[k] - _BASE["counts"][k] for k in counts}
-    out = _Launches(fed_cycle=diffusion.fed_cycle_cuda.launches,
+    out = _Launches(fed_cycle=d["fed_cycle"],
                     sample_patches=d["sample_patches"],
                     knn2_hamming=d["knn2_hamming"])
     out.procrustes = d["procrustes3"]
     out.warmups = {k: warm[k] - _BASE["warm"][k] for k in warm}
     out.warmup = out.warmups["sample_patches"]
+    out.warmup_a = out.warmups["fed_cycle"]
     return out
 
 
@@ -1373,10 +1473,12 @@ def bigdb_phase(torch, dev, profile_dir):
     torch.cuda.synchronize()
     launches = _read_launches()
     log(f"big-DB launches in one frame: {launches}")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
+    check(launches == {"fed_cycle": 15 + launches.warmup_a,
+                       "sample_patches": 2 + launches.warmup,
                        "knn2_hamming": 1 + launches.warmups["knn2_hamming"]},
           "1 kNN-2, 15 kernel-A and 2 kernel-B launches per big-DB frame "
-          f"({launches.warmup} kernel-B launches in ladder warm-ups, "
+          f"({launches.warmup_a} kernel-A launches in front-half warm-ups, "
+          f"{launches.warmup} kernel-B launches in ladder warm-ups, "
           f"{launches.warmups['knn2_hamming']} kNN-2 in step-graph "
           "warm-ups; kNN-2 on its device counter, inside the back half's "
           "graph)")
@@ -1413,6 +1515,12 @@ def bigdb_phase(torch, dev, profile_dir):
         lambda: localize_from_features(q_feats, loc.db, loc.camera, config,
                                        True))
     no_sync(torch, lambda: loc.localize(frame_t), "big DB (a host frame)")
+    graph["front"] = front_against_eager(
+        torch, "big DB, 512² B = 1", frame_t.to(dev)[None], config.akaze)
+    graph["host_launches"] = host_launches(torch, lambda: loc.localize(
+        frame_t))
+    log(f"big DB: {graph['host_launches']} host launches in a warmed step "
+        "(the profiler's runtime events)")
 
     med = timed_steps(torch, lambda: loc.localize(frame_t), "big-DB")
     if profile_dir:
@@ -1453,10 +1561,12 @@ def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
     launches = _read_launches()
     log(f"pruned launches in one frame: {launches} (the coarse and window "
         f"DBs are below db_block: dense matches)")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
+    check(launches == {"fed_cycle": 15 + launches.warmup_a,
+                       "sample_patches": 2 + launches.warmup,
                        "knn2_hamming": 0},
           "15 kernel-A and 2 kernel-B launches per pruned frame "
-          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
+          f"({launches.warmup_a} kernel-A launches in front-half warm-ups, "
+          f"{launches.warmup} kernel-B launches in ladder warm-ups)")
     check(launches.procrustes == 1 + launches.warmups["procrustes3"],
           f"1 Procrustes launch per pruned frame ({launches.procrustes})")
     H = pr.result.homography.H.cpu().numpy()
@@ -1486,6 +1596,11 @@ def pruned_phase(torch, dev, loc, full_res, frame_t, profile_dir):
         lambda: _pruned_back_half(feats, hw, pdb, loc.camera, config, True,
                                   0.25))
     no_sync(torch, step, "pruned (a host frame)")
+    graph["front"] = front_against_eager(
+        torch, "pruned, 512² B = 1", frame_t.to(dev)[None], config.akaze)
+    graph["host_launches"] = host_launches(torch, step)
+    log(f"pruned: {graph['host_launches']} host launches in a warmed step "
+        "(the profiler's runtime events)")
     med = timed_steps(torch, step, "pruned")
     if profile_dir:
         profile_step(torch, step, profile_dir, "pruned")
@@ -1639,12 +1754,14 @@ def stream_run(torch, label, make_stream, frames, shifts, refs, kind):
     steps = -(-len(frames) // b)
     check([r.frame_id for r in results] == list(range(len(frames))),
           f"{label}: {len(frames)} frames back, in order")
-    check(launches["fed_cycle"] == 15 * (steps + s.fallback_frames)
+    check(launches["fed_cycle"]
+          == 15 * (steps + s.fallback_frames) + launches.warmup_a
           and launches["sample_patches"]
           == 2 * (steps + s.fallback_frames) + launches.warmup,
           f"{label}: 15 kernel-A and 2 kernel-B launches per batch of "
           f"{b} ({launches['fed_cycle']} and {launches['sample_patches']} "
           f"for {steps} batches, {s.fallback_frames} fallback frames; "
+          f"{launches.warmup_a} kernel-A launches in front-half warm-ups, "
           f"{launches.warmup} kernel-B launches in ladder warm-ups)")
     graph = stream_graph(s, used)
     if kind == "full1M":
@@ -2184,17 +2301,33 @@ def ladder_phase(torch, dev, image):
     of its key, kernel B's launches on its device counter (the profiler's
     events beside them), kernel B against its twin at the rung's K, the
     graph's pool beside the eager stage's peak, and the stage's device
-    time at capacity, at the rung and on the live prefix."""
+    time at capacity, at the rung and on the live prefix. In each mode the
+    front half's graph is held to the eager front end on the four cases,
+    a 512² batch of 8 and a 1024² frame."""
     import dataclasses
 
+    from cubesat_apds_tpu_torch.bench import make_frame
+    from cubesat_apds_tpu_torch.ops.features import akaze as akaze_mod
     from cubesat_apds_tpu_torch.ops.features import ladder
     from cubesat_apds_tpu_torch.ops.features.akaze import (
         _bucket_sizes, _front_end, adaptive_orient_describe,
         detect_and_compute_batch, orient_describe, rung_index)
 
     t_phase = time.perf_counter()
-    out, chosen = {}, {}
+    frame = torch.from_numpy(make_frame(np.random.default_rng(SEED))).to(dev)
+    front_only = [
+        (f"512² B = {STREAM_BATCH}, capacity 2048", torch.stack(
+            [torch.roll(frame, (k, 2 * k), (0, 1))
+             for k in range(STREAM_BATCH)])),
+        ("1024² frame, capacity 2048",
+         torch.from_numpy(image[:1024, :1024].copy())[None].to(dev))]
+    out, chosen, fronts = {}, {}, {}
     for mode, kw in LADDER_MODES.items():
+        for case, x in front_only:
+            label = f"{mode}: {case}"
+            fronts[label] = front_against_eager(
+                torch, f"ladder phase, {label}", x,
+                dataclasses.replace(serving_config().akaze, **kw))
         chosen[mode] = set()
         for case, x, base in ladder_cases(torch, dev, image):
             label = f"{mode}: {case}"
@@ -2245,7 +2378,7 @@ def ladder_phase(torch, dev, image):
             counted = _read_launches()
             b_want = 2 if mode == "exact" else 4
             check(counted["sample_patches"] == b_want + counted.warmup
-                  and counted["fed_cycle"] == 15,
+                  and counted["fed_cycle"] == 15 + counted.warmup_a,
                   f"{label}: kernel B {b_want} launches a step on its "
                   f"device counter ({counted}, {counted.warmup} in ladder "
                   f"warm-ups); the profiler's device events by name "
@@ -2253,6 +2386,13 @@ def ladder_phase(torch, dev, image):
                   "CUDA-graph kernels between sessions)")
             twin = kernel_b_against_twin(torch, lambda: orient_describe(
                 kps, packed, level_hw, rung, akaze, grids), label)
+            fronts[label] = front_against_eager(
+                torch, f"ladder phase, {label}", x, akaze)
+            fronts[label]["host_launches"] = host_launches(
+                torch, lambda: detect_and_compute_batch(x, akaze))
+            log(f"ladder, {label}: {fronts[label]['host_launches']} host "
+                "launches in a warmed call (front graph, ladder graph; the "
+                "profiler's runtime events)")
 
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2312,9 +2452,11 @@ def ladder_phase(torch, dev, image):
               f"device chose the first, a middle and the last rung "
               f"({sorted(chosen[mode])})")
     n_graphs = ladder.clear_ladder_graphs()
+    n_front = akaze_mod.clear_front_graphs()
     secs = time.perf_counter() - t_phase
-    log(f"ladder phase: {secs:.1f} s; {n_graphs} cached graphs cleared")
-    return {"seconds": secs, "cases": out}
+    log(f"ladder phase: {secs:.1f} s; {n_graphs} cached ladder graphs and "
+        f"{n_front} front-half graphs cleared")
+    return {"seconds": secs, "cases": out, "fronts": fronts}
 
 
 # ---- slice 4: a feature DB built on the card --------------------------------
@@ -2481,18 +2623,38 @@ def build_phase(torch, dev, root, image):
         f"batches of {BUILD_BATCH}, {stats.keypoints} keypoints "
         f"(per LoD {per_lod}) in {secs:.2f} s = {stats.tiles / secs:.2f} "
         f"tiles/s; launches per tile batch {per_batch}; peak device memory "
-        f"{peak / 2**30:.2f} GiB")
+        f"{peak / 2**30:.2f} GiB (since the window's last graph capture, "
+        "which resets the statistic)")
     check(stats.lods == 6 and stats.tiles == 1365
           and [len(g[4]) * len(g[5]) for g in grid]
           == [1024, 256, 64, 16, 4, 1], "6 LoDs, 1,365 tiles of 256²")
-    check(launches == {"fed_cycle": 15 * batches,
+    check(launches == {"fed_cycle": 15 * batches + launches.warmup_a,
                        "sample_patches": 2 * batches + launches.warmup,
                        "knn2_hamming": 0},
           "15 kernel-A and 2 kernel-B launches per tile batch, no kNN-2 "
-          f"({launches.warmup} kernel-B launches in ladder warm-ups)")
+          f"({launches.warmup_a} kernel-A launches in front-half warm-ups, "
+          f"{launches.warmup} kernel-B launches in ladder warm-ups)")
     check(store._elevation is not None and 2 in store._geotransforms,
           "the store holds the elevation raster and its geotransform")
+    log(f"build, {card_line()}: {secs:.3f} s; kernel A "
+        f"{launches['fed_cycle']} launches on its device counter for "
+        f"{batches} tile batches ({launches.warmup_a} in front-half "
+        "warm-ups)")
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        detect_and_compute_batch)
+
+    tiles = build_tiles(torch, dev, image)
+    front = front_against_eager(torch, f"build batch {BUILD_BATCH} x 256²",
+                                tiles, config.akaze)
+    front["host_launches"] = host_launches(
+        torch, lambda: detect_and_compute_batch(tiles, config.akaze))
+    pools = graph_pools_mib()
+    log(f"build: {front['host_launches']} host launches in a warmed tile "
+        f"batch (the profiler's runtime events); every cached graph's pool "
+        f"at the build phase's end, MiB: {pools} (total "
+        f"{sum(pools.values()):.1f})")
     return store, ds, {"seconds": secs, "tiles": stats.tiles,
+                       "front": front, "graph_pools_mib": pools,
                        "paired_s": {"every slot": [flat_s, flat_s2],
                                     "ladder": [secs, secs2]},
                        "tiles_per_s": stats.tiles / secs,
@@ -2778,7 +2940,7 @@ def tiled_phase(torch, dev, terrain, image):
     resp = kp.response.cpu().numpy()[:n]
     log(f"tiled 8192² at capacity {TILED_CAP}: {n} keypoints in "
         f"{secs:.3f} s; launches {launches}")
-    check(launches["fed_cycle"] == 15 * 81
+    check(launches["fed_cycle"] == 15 * 81 + launches.warmup_a
           and launches["sample_patches"] == 2 * 81 + launches.warmup,
           "81 tiles: 15 kernel-A and 2 kernel-B launches each "
           f"({launches.warmup} kernel-B launches in ladder warm-ups)")
@@ -2794,6 +2956,16 @@ def tiled_phase(torch, dev, terrain, image):
         else np.zeros(0)
     check(not (d2 < 0.25).any(), "no surviving pair within 0.5 px and "
           "≤ 1 level (the seam rule)")
+    from cubesat_apds_tpu_torch.ops.features.scale_space import (
+        compute_k_percentile)
+
+    dec = MOSAIC_N // 2048
+    kc = compute_k_percentile(img[::dec, ::dec], cfg.kcontrast_percentile,
+                              1.0, cfg.kcontrast_nbins)
+    front = front_against_eager(
+        torch, "tiled 1024² tile, the global contrast factor",
+        img[:1024, :1024][None].contiguous(), cfg,
+        capacity=max(TILED_CAP // (81 // 2), 256), kcontrast=kc)
 
     sub = image[:2048, :2048]
     t0 = time.perf_counter()
@@ -2840,7 +3012,7 @@ def tiled_phase(torch, dev, terrain, image):
             f"per call over {iters} ({int(f.keypoints.valid.sum())} "
             f"keypoints)")
     return {"tiled_8192_s": secs, "keypoints": n, "launches": launches,
-            "sweep_ms": sweep}
+            "sweep_ms": sweep, "front": front}
 
 
 def build_kernel_phase(torch, dev, k_rung):
@@ -2964,6 +3136,9 @@ def accuracy_phase(torch, dev):
     # Kernel B's launches in the ladder warm-ups of the builds and frames.
     build_w = sum(b[1][1].warmup - b[0][1].warmup for b in builds)
     frame_w = total.warmup - build_w
+    # Kernel A's launches in the front-half warm-ups of each.
+    build_wa = sum(b[1][1].warmup_a - b[0][1].warmup_a for b in builds)
+    frame_wa = total.warmup_a - build_wa
     per_frame = {k: v / n_frames for k, v in frame_l.items()}
     per_build = {k: v / len(builds) for k, v in build_l.items()}
     frames_s = seconds - build_s
@@ -2973,13 +3148,15 @@ def accuracy_phase(torch, dev):
         f"localize) {frames_s:.2f} s = {n_frames / frames_s:.3f} frames/s")
     log(f"accuracy launches a frame {per_frame}, a build (one 1024² LoD-0 "
         f"tile) {per_build}; kernel-B launches in ladder warm-ups: "
-        f"{frame_w} in the frames, {build_w} in the builds")
-    check(per_frame["fed_cycle"] == 15
+        f"{frame_w} in the frames, {build_w} in the builds; kernel-A "
+        f"launches in front-half warm-ups: {frame_wa} in the frames, "
+        f"{build_wa} in the builds")
+    check(frame_l["fed_cycle"] == 15 * n_frames + frame_wa
           and frame_l["sample_patches"] == 2 * n_frames + frame_w
           and per_frame["knn2_hamming"] == 0,
           "every accuracy frame launched kernel A 15 times and kernel B "
           "twice (dense match: no kernel 4)")
-    check(per_build["fed_cycle"] == 15
+    check(build_l["fed_cycle"] == 15 * len(builds) + build_wa
           and build_l["sample_patches"] == 2 * len(builds) + build_w,
           "every accuracy DB build launched kernel A 15 times (its 1024² "
           "tile) and kernel B twice")
@@ -3341,7 +3518,8 @@ def mesh_serve(torch, dev, loc, pool, config):
     torch.cuda.synchronize()
     launches = _read_launches()
     log(f"serve step dp=2 x tp=2, batch {len(pool)}: launches {launches}")
-    check(launches == {"fed_cycle": 30, "sample_patches": 4 + launches.warmup,
+    check(launches == {"fed_cycle": 30 + launches.warmup_a,
+                       "sample_patches": 4 + launches.warmup,
                        "knn2_hamming": 4},
           "serve step: kernel A 15 and B 2 per dp row, kernel 4 once per "
           f"shard per row ({launches.warmup} kernel-B launches in ladder "
@@ -3412,7 +3590,7 @@ def mesh_stream(torch, dev, ctx, config):
 
     check([r.frame_id for r in results] == list(range(len(frames))),
           f"mesh stream: {len(frames)} frames back, in order")
-    check(launches == {"fed_cycle": 30 * steps,
+    check(launches == {"fed_cycle": 30 * steps + launches.warmup_a,
                        "sample_patches": 4 * steps + launches.warmup,
                        "knn2_hamming": 4 * steps},
           f"mesh stream: kernel A 30, B 4 and kernel 4 4 launches a batch "
@@ -3475,7 +3653,7 @@ def mesh_preprocess(torch, dev, image):
     log(f"preprocess(mesh=dp 2) of a 2048² crop, 3 LoDs: {stats.tiles} "
         f"tiles in {batches} batches, {stats.keypoints} keypoints in "
         f"{secs:.2f} s; launches {launches}")
-    check(launches == {"fed_cycle": 30 * batches,
+    check(launches == {"fed_cycle": 30 * batches + launches.warmup_a,
                        "sample_patches": 4 * batches + launches.warmup,
                        "knn2_hamming": 0},
           "preprocess(mesh=dp 2): kernel A 15 and B 2 launches per dp row "
@@ -3737,7 +3915,7 @@ def modes_features(torch, dev):
                   f"keypoints, angles and descriptors bit for bit "
                   f"({int(f.keypoints.valid.sum())} keypoints; CPU "
                   f"{cpu_s:.1f} s)")
-            check(launches == {"fed_cycle": 15,
+            check(launches == {"fed_cycle": 15 + launches.warmup_a,
                                "sample_patches": 4 + launches.warmup,
                                "knn2_hamming": 0},
                   f"{label}: kernel A 15 and kernel B 4 launches a frame "
@@ -3826,7 +4004,7 @@ def modes_accuracy(torch, dev):
             check(ok, f"{mode} {cond}: ok {agg['ok_rate']}, attitude "
                   f"{agg['att_med']} deg, position {agg['pos_med']} m, "
                   f"footprint {agg['fp_med']} m within the bounds {gate}")
-    check(launches == {"fed_cycle": 15 * (frames + 2),
+    check(launches == {"fed_cycle": 15 * (frames + 2) + launches.warmup_a,
                        "sample_patches": 4 * (frames + 2) + launches.warmup,
                        "knn2_hamming": 0},
           f"modes accuracy: kernel A 15 and B 4 launches in each of the "
@@ -3982,7 +4160,7 @@ def cli_build(torch, dev, root, crop):
           and _same_store_rows(store, ref_path),
           f"preprocess: the CLI's store ({ref_stats.keypoints} keypoints, "
           f"{ref_stats.tiles} tiles) equals the in-process build bit for bit")
-    check(launches == {"fed_cycle": 15 * batches,
+    check(launches == {"fed_cycle": 15 * batches + launches.warmup_a,
                        "sample_patches": 2 * batches + launches.warmup,
                        "knn2_hamming": 0},
           f"preprocess: kernel A 15 and B 2 launches in each of {batches} "
@@ -3993,7 +4171,7 @@ def cli_build(torch, dev, root, crop):
         store2 if a == store else a for a in argv] + ["-c", "2"])
     check(_same_store_rows(store2, ref_path),
           "preprocess -c 2: the same rows as the in-process build")
-    check(launches2 == {"fed_cycle": 30 * batches,
+    check(launches2 == {"fed_cycle": 30 * batches + launches2.warmup_a,
                         "sample_patches": 4 * batches + launches2.warmup,
                         "knn2_hamming": 0},
           "preprocess -c 2: kernel A 30 and B 4 launches a tile batch "
@@ -4044,7 +4222,8 @@ def cli_localize(torch, dev, root, store, ds):
           and got["rvec"] == res.pose.rvec.cpu().numpy().tolist(),
           "localize: keypoints, matches, inliers, H and pose equal "
           "Localizer.localize's bit for bit")
-    check(launches == {"fed_cycle": 15, "sample_patches": 2 + launches.warmup,
+    check(launches == {"fed_cycle": 15 + launches.warmup_a,
+                       "sample_patches": 2 + launches.warmup,
                        "knn2_hamming": int(rows > PipelineConfig()
                                            .match.db_block)},
           f"localize: kernel A 15, B 2 launches; kNN-2 where LoD 0's {rows} "
@@ -4142,7 +4321,7 @@ def cli_stream(torch, dev, root):
           "stream --mesh 2x2: every line's H, inliers and matches equal the "
           "in-process mesh stream's")
     check(launches["knn2_hamming"] == 4 * batches
-          and launches["fed_cycle"] == 30 * batches
+          and launches["fed_cycle"] == 30 * batches + launches.warmup_a
           and launches["sample_patches"] == 4 * batches + launches.warmup,
           f"stream --mesh 2x2: kNN-2 4, kernel A 30, B 4 launches in each of "
           f"{batches} batches (one kNN-2 a shard; {launches.warmup} "
@@ -4186,7 +4365,7 @@ def cli_match(torch, root):
               and card["viz"] == viz and os.path.exists(viz),
               f"{label}: keypoints {card['keypoints']}, matches "
               f"{card['matches']} on the card = on the CPU; -o written")
-        check(launches == {"fed_cycle": 30,
+        check(launches == {"fed_cycle": 30 + launches.warmup_a,
                            "sample_patches": 4 + launches.warmup,
                            "knn2_hamming": 0},
               f"{label}: kernel A 15 and B 2 launches an image "
@@ -4292,7 +4471,8 @@ def cli_phase(torch, dev, card, crop):
         print(json.dumps(line), flush=True)
         check(line["value"] > 0
               and torch.cuda.get_device_name(0) in line["device"]
-              and bench_launches == {"fed_cycle": 15 * 34,
+              and bench_launches == {"fed_cycle": 15 * 34
+                                     + bench_launches.warmup_a,
                                      "sample_patches": 2 * 34
                                      + bench_launches.warmup,
                                      "knn2_hamming": 0},
@@ -4432,7 +4612,8 @@ def main(argv=None):
         kernels.append(procrustes_phase(torch, dev, path_S,
                                         launches["procrustes3"]))
         _mark(t_start, "Procrustes phase")
-        paired = graph_pair_phase(torch, dev, loc10k, loc, frame_t)
+        paired = paired_graphs = graph_pair_phase(torch, dev, loc10k, loc,
+                                                  frame_t)
         _mark(t_start, "paired phase")
         streams, stream_ctx = stream_phase(torch, dev, args.profile)
         _mark(t_start, "stream phase")
@@ -4538,13 +4719,13 @@ def main(argv=None):
             f"{STREAM_BATCH} {sum(part_a['batch_sync_sites'].values())} "
             f"outside its fetch, its fetch "
             f"{sum(part_a['fetch_sync_sites'].values())}")
-        log(f"card: {card} — the back half's graphs: slice "
-            f"{slice_graph}, big DB {big_graph}, pruned {pruned_graph}; "
-            "paired eager/graph: " + "; ".join(
-                f"{label} frames/s eager {r['frames_per_s']['eager']} graph "
-                f"{r['frames_per_s']['graph']}, host launches "
-                f"{r['host_launches']}, pool {r['pool_mib']:.1f} MiB, "
-                f"capture {r['capture_s']:.3f} s"
+        log(f"card: {card} — the serving step's graphs (back half, with "
+            f"the front half's under 'front'): slice {slice_graph}, big DB "
+            f"{big_graph}, pruned {pruned_graph}; paired legs: " + "; ".join(
+                f"{label} frames/s " + ", ".join(
+                    f"{m} {v}" for m, v in r["frames_per_s"].items())
+                + f", host launches {r['host_launches']}, back pool "
+                f"{r['pool_mib']:.1f} MiB, capture {r['capture_s']:.3f} s"
                 for label, r in paired.items()))
         log(f"card: {card} — build {db_build['seconds']:.2f} s "
             f"({db_build['tiles_per_s']:.2f} tiles/s), serve check LoD "
@@ -4582,6 +4763,22 @@ def main(argv=None):
                         for label, r in ladder_run["cases"].items())
             + f"; paired build s: every slot {paired['every slot']}, "
             f"ladder {paired['ladder']}")
+        fronts = dict(ladder_run["fronts"], **{
+            "slice": slice_graph["front"], "big DB": big_graph["front"],
+            "pruned": pruned_graph["front"],
+            f"paired B = {STREAM_BATCH}":
+                paired_graphs[f"10k slice, B = {STREAM_BATCH}"]["front"],
+            "build batch": db_build["front"], "tiled tile": tiled["front"]})
+        log(f"card: {card} — the front half's graphs, pool / eager front "
+            "end's peak MiB: " + "; ".join(
+                f"{label} {r['pool_mib']:.1f} / {r['eager_peak_mib']:.1f}"
+                for label, r in fronts.items())
+            + f"; host launches in a warmed step: slice "
+            f"{slice_graph['host_launches']}, big DB "
+            f"{big_graph['host_launches']}, pruned "
+            f"{pruned_graph['host_launches']}, build tile batch "
+            f"{db_build['front']['host_launches']}; every cached pool at "
+            f"the build phase's end {db_build['graph_pools_mib']} MiB")
         log(f"card: {card} — every phase in "
             f"{time.perf_counter() - t_start:.1f} s, the kernels' build "
             "included")

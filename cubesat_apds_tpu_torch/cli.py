@@ -77,15 +77,36 @@ def _make_mesh(dp: int, tp: int, slots, flag: str):
 
 def _join_distributed(args):
     """--distributed: join the cross-process group from the APDS_*
-    variables before any mesh is built."""
+    variables before any mesh is built (`main` leaves it when the command
+    ends)."""
     if not getattr(args, "distributed", False):
         return
+    import torch.distributed as dist
+
     from cubesat_apds_tpu_torch.parallel.mesh import initialize_distributed
 
+    joined = not dist.is_initialized()
     if not initialize_distributed():
         raise SystemExit(
             "--distributed: no coordinator configured (set "
             "APDS_COORDINATOR, APDS_NUM_PROCESSES, APDS_PROCESS_ID)")
+    args.joined_group = joined
+
+
+def _leave_distributed(args, ok: bool) -> None:
+    """Tear down the group `_join_distributed` joined. A process that
+    exits with its group alive can abort in C++ teardown ("terminate
+    called without an active exception"): the rendezvous store's server
+    thread in process 0 may still be serving the other process's
+    disconnect. After a command that succeeded, a barrier first, so no
+    process tears down while another still runs a collective."""
+    if not getattr(args, "joined_group", False):
+        return
+    import torch.distributed as dist
+
+    if ok:
+        dist.barrier()
+    dist.destroy_process_group()
 
 
 def _open_store(path: str):
@@ -899,7 +920,13 @@ def main(argv=None):
     pst.set_defaults(fn=_cmd_store)
 
     args = p.parse_args(argv)
-    return args.fn(args)
+    ok = False
+    try:
+        rc = args.fn(args)
+        ok = True
+        return rc
+    finally:
+        _leave_distributed(args, ok)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 the closing of the graphs it drops, a memory pool's size, and a graph's
 node counts.
 
-Two kinds of graph use it: the capacity ladder's (ops/features/ladder.py)
+Three kinds of graph use it: the serving step's front half
+(ops/features/akaze.py), the capacity ladder's (ops/features/ladder.py)
 and the serving step's back half (pipelines/step_graph.py). Each keeps
 one graph a key in its own cache; an entry is any object with a
 `close()` that frees its graph and pool and says whether there was one

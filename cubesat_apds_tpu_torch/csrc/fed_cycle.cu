@@ -167,8 +167,15 @@ template <int CPT, bool CLUSTER>
 __global__ void __launch_bounds__(FED_MAX_THREADS)
 fed_cycle_kernel(const float* __restrict__ L, const float* __restrict__ g,
                  float* __restrict__ out, int H, int W, int tile_h,
-                 int tile_w, int tiles_x, int n_steps, FedHalfTaus half_taus) {
+                 int tile_w, int tiles_x, int n_steps, FedHalfTaus half_taus,
+                 unsigned long long* __restrict__ launches) {
     extern __shared__ __align__(16) float smem[];
+    // The device's own count of launches, eager or inside a CUDA graph
+    // (a profiler's trace does not attribute graph kernels reliably).
+    if (launches != nullptr && blockIdx.x == 0 && blockIdx.z == 0 &&
+        threadIdx.x == 0) {
+        atomicAdd(launches, 1ULL);
+    }
     const size_t image = (size_t)blockIdx.z * H * W;
     L += image;
     g += image;
@@ -327,7 +334,7 @@ fed_cycle_kernel(const float* __restrict__ L, const float* __restrict__ g,
 #define FED_KERNELS 10            // CPT in {1, 2, 4, 8, 16}, cluster or not
 
 typedef void (*FedKernel)(const float*, const float*, float*, int, int, int,
-                          int, int, int, FedHalfTaus);
+                          int, int, int, FedHalfTaus, unsigned long long*);
 
 // The kernel for cpt cells per thread (1, 2, 4, 8 or 16), in a cluster or not,
 // and its slot in the attribute state below; nullptr for another cpt.
@@ -423,14 +430,15 @@ static bool plan_ok(int H, int W, int batch, int tile_h, int tile_w,
 // n_steps floats (copied into the kernel's parameters). smem_bytes must
 // cover 16 + 8 * (s + 2) * min(W, tile_w + 2n) with s = ceil(min(H,
 // tile_h + 2n) / cluster) (8 * s * ... for plain tiles: no ghost rows, no
-// mbarriers).
+// mbarriers). `launches` (a device uint64, or null) gains one for every
+// launch the device runs.
 // Returns a cudaError_t: invalid value for a plan that does not fit,
 // else cudaGetLastError() after the launch.
 extern "C" int apds_fed_cycle(const float* L, const float* g, float* out,
                               int batch, int H, int W, int tile_h, int tile_w,
                               int cluster, int threads, int cpt,
                               const float* half_taus, int n_steps,
-                              int smem_bytes, void* stream) {
+                              int smem_bytes, void* launches, void* stream) {
     int slot = 0;
     const FedKernel fn = kernel_for(cpt, cluster, &slot);
     if (fn == nullptr || !plan_ok(H, W, batch, tile_h, tile_w, cluster,
@@ -449,7 +457,8 @@ extern "C" int apds_fed_cycle(const float* L, const float* g, float* out,
     fill_config(&cfg, &attr, cluster * tiles_x * tiles_y, batch, cluster,
                 threads, smem_bytes, (cudaStream_t)stream);
     err = cudaLaunchKernelEx(&cfg, fn, L, g, out, H, W, tile_h, tile_w,
-                             tiles_x, n_steps, t);
+                             tiles_x, n_steps, t,
+                             (unsigned long long*)launches);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

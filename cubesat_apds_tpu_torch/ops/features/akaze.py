@@ -15,20 +15,29 @@ the host; on the CPU the count is read on the host. Invalid slots come
 out as zeros either way, so every rung gives the same bits. One image is
 a batch of one.
 
+On the card the front half (`_front_end`: the scale space, detection
+and the level stacks) replays one CUDA graph a key, the counterpart of
+the JAX package's jit of `detect_and_compute_batch` (core/step_graph.py
+captures it; the key holds the shapes, dtypes and devices of the images
+and of `kcontrast`, the configuration, the capacity and the stream). Up
+to `FRONT_GRAPHS` of them stay cached; `clear_front_graphs()` drops
+them and frees their pools. `_front_end` stays callable eagerly, as the
+graph's reference.
+
 `detect_and_compute_tiled` covers images past one scale space with
 overlapping tiles, a global contrast factor and a seam dedup.
 """
 
 from __future__ import annotations
 
-from typing import List
-
 import numpy as np
 import torch
 
+from cubesat_apds_tpu_torch.core import step_graph
 from cubesat_apds_tpu_torch.core.config import AkazeConfig
+from cubesat_apds_tpu_torch.core.graph_cache import GraphCache, close_all
 from cubesat_apds_tpu_torch.core.types import (
-    Features, Keypoints, device_const, select)
+    Features, Keypoints, device_const, select, upload)
 from cubesat_apds_tpu_torch.ops.features.detect import detect_keypoints
 from cubesat_apds_tpu_torch.ops.features.ladder import run_ladder
 from cubesat_apds_tpu_torch.ops.features.mldb import (
@@ -39,23 +48,38 @@ from cubesat_apds_tpu_torch.ops.features.scale_space import build_scale_space
 from cubesat_apds_tpu_torch.ops.kernels.sample_kernel import patch_sampler
 from cubesat_apds_tpu_torch.ops.resample import gaussian_blur
 
+FRONT_GRAPHS = 8
+_FRONT = GraphCache(FRONT_GRAPHS)
 
-def _pad_stack(levels: List[torch.Tensor]) -> torch.Tensor:
-    """Stack per-level [B, h, w] arrays into one [B, L, Hmax, Wmax]
-    zero-padded tensor."""
-    hmax = max(a.shape[-2] for a in levels)
-    wmax = max(a.shape[-1] for a in levels)
-    out = levels[0].new_zeros((levels[0].shape[0], len(levels), hmax, wmax))
-    for i, a in enumerate(levels):
-        out[:, i, : a.shape[-2], : a.shape[-1]] = a
-    return out
+
+def clear_front_graphs() -> int:
+    """Drop every cached front-half graph and free its memory pool;
+    returns how many there were."""
+    entries = _FRONT.clear()
+    close_all(entries)
+    return len(entries)
+
+
+def front_graphs() -> list:
+    """The cached front-half graphs, least recently used first (their
+    `key`, `nodes`, `pool_bytes`, `warmup_s`, `capture_s` and
+    `warmup_launches`)."""
+    return _FRONT.entries()
 
 
 def _packed_stack(lt, lx, ly) -> torch.Tensor:
     """[B, L, H, W, 4] channel-packed (Lt, Lx, Ly, 0) stacks in bfloat16
-    (round to nearest even, as JAX's astype)."""
-    stacks = [_pad_stack(x).to(torch.bfloat16) for x in (lt, lx, ly)]
-    return torch.stack(stacks + [torch.zeros_like(stacks[0])], dim=-1)
+    (round to nearest even, as JAX's astype), each level zero-padded to
+    the largest. Each level is written into its channel of the output
+    directly, so no float32 stack of all the levels is ever made."""
+    hmax = max(a.shape[-2] for a in lt)
+    wmax = max(a.shape[-1] for a in lt)
+    out = lt[0].new_zeros((lt[0].shape[0], len(lt), hmax, wmax, 4),
+                          dtype=torch.bfloat16)
+    for c, levels in enumerate((lt, lx, ly)):
+        for i, a in enumerate(levels):
+            out[:, i, :a.shape[-2], :a.shape[-1], c] = a
+    return out
 
 
 def _grid_stacks(ss, lx, ly, config: AkazeConfig):
@@ -112,15 +136,19 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
     response-sorted and capacity-padded: the same bits as
     `detect_and_compute` on each image alone.
 
-    The front end runs on the whole batch (one kernel-A launch per level).
-    The per-keypoint stages run once for the batch, on the capacity
+    The front end runs on the whole batch (one kernel-A launch per level):
+    on the card through this key's CUDA graph (captured at the key's
+    first call, which may synchronise), on the CPU eagerly. The
+    per-keypoint stages run once for the batch, on the capacity
     ladder's rung for the batch's largest live count
     (`adaptive_orient_describe`; at `config.adaptive_buckets` <= 1 on all
     `capacity` slots): on the card the rung is picked on the device, so
-    nothing is read back to the host and the call only queues work. The
-    detector's top-K is exact whatever `config.detect_topk` says, and
-    `config.sampler` is ignored: on CUDA both per-keypoint stages sample
-    through kernel B, on CPU through the plain gather.
+    a warmed call reads nothing back to the host and only queues work.
+    `kcontrast` (a number, or one per image) overrides the images'
+    contrast factors. The detector's top-K is exact whatever
+    `config.detect_topk` says, and `config.sampler` is ignored: on CUDA
+    both per-keypoint stages sample through kernel B, on CPU through the
+    plain gather.
     `config.descriptor_mode` and `config.orientation_mode` select the
     JAX package's exact, fast and hybrid sampling.
     """
@@ -129,7 +157,9 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
     if imgs.dim() != 3:
         raise ValueError(f"detect_and_compute_batch: [B, H, W] images, got "
                          f"{tuple(imgs.shape)}")
-    kps, packed, level_hw, grids = _front_end(imgs, config, capacity,
+    if kcontrast is not None:
+        kcontrast = upload(kcontrast, imgs.device, torch.float32)
+    kps, packed, level_hw, grids = front_half(imgs, config, capacity,
                                               kcontrast)
     angle, desc = adaptive_orient_describe(kps, packed, level_hw, config,
                                            grids)
@@ -139,10 +169,20 @@ def detect_and_compute_batch(imgs, config: AkazeConfig = AkazeConfig(),
     return Features(keypoints=kps, descriptors=desc)
 
 
+def front_half(imgs, config: AkazeConfig, capacity: int, kcontrast):
+    """`_front_end(imgs, config, capacity, kcontrast)`: on the card
+    through this key's CUDA graph (its pool starts as one block of the
+    warm-up's peak), on the CPU eagerly. `kcontrast` is None or a float32
+    tensor on the images' device."""
+    return step_graph.run(_FRONT, _front_end, imgs, config, capacity,
+                          kcontrast, prime_pool=True)
+
+
 def _front_end(imgs, config: AkazeConfig, capacity: int, kcontrast):
     """Scale space, detection and the packed level stacks of a batch:
     (keypoints without angles, packed [B, L, H, W, 4], level_hw [L, 2],
-    the approximate modes' grid stacks or None)."""
+    the approximate modes' grid stacks or None). Eager: the function the
+    front half's graph captures, and its reference on the card."""
     ss = build_scale_space(imgs, config, kcontrast)
     kps, lx_list, ly_list = detect_keypoints(ss, config, capacity)
     packed = _packed_stack(ss.Lt, lx_list, ly_list)

@@ -32,9 +32,10 @@ _I = ctypes.c_int
 # C entry points: name → argtypes. Every entry returns cudaError_t as int.
 _SIGNATURES = {
     # L, g, out, batch, H, W, tile_h, tile_w, cluster, threads, cells per
-    # thread, half_taus (host), n_steps, smem_bytes, stream
+    # thread, half_taus (host), n_steps, smem_bytes, launch counter (device
+    # int64, or null), stream
     "apds_fed_cycle": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
-                       _I, _P),
+                       _I, _P, _P),
     # cluster, threads, cells per thread, smem_bytes, info (int32 [3], host)
     "apds_fed_cycle_info": (_I, _I, _I, _I, _P),
     # stack, level_hw, lvl, iy, ix, out, K, S, L, Hmax, Wmax, launch

@@ -13,7 +13,9 @@ up to 16 CTAs that each hold a strip of the tile's rows, so the small
 levels run on many SMs.
 
 `fed_cycle_fused` dispatches on the device of its input: CPU tensors go
-to the twin, CUDA tensors to the kernel, anything else raises.
+to the twin, CUDA tensors to the kernel, anything else raises. The
+kernel counts its own launches on the device, eager or replayed from a
+CUDA graph (`device_launches`).
 """
 
 from __future__ import annotations
@@ -195,14 +197,20 @@ def fed_cycle_cuda(L, g, taus, plan: FedPlan | None = None):
                          f"{b}")
     out = torch.empty_like(L)
     lib = build.load_kernels().lib
+    counter = build.launch_counter("fed_cycle", L.device)
     with build.on_device(L.device):
         err = lib.apds_fed_cycle(
             L.data_ptr(), g.data_ptr(), out.data_ptr(), b, h, w, p.tile_h,
             p.tile_w, p.cluster, p.threads, p.cells_per_thread,
-            half_taus, n, p.smem, build.stream_of(L))
+            half_taus, n, p.smem, build.ptr(counter), build.stream_of(L))
     build.check_launch("apds_fed_cycle", err)
-    fed_cycle_cuda.launches += 1
     return out
+
+
+def device_launches(dev) -> int:
+    """Kernel A's launches on `dev` so far, as the device counted them
+    (eager or replayed from a CUDA graph); a synchronising call."""
+    return build.device_launches("fed_cycle", dev)
 
 
 def plan_info(plan: FedPlan) -> dict:
@@ -216,9 +224,6 @@ def plan_info(plan: FedPlan) -> dict:
                                             info.ctypes.data))
     return {"max_active_clusters": int(info[0]), "registers": int(info[1]),
             "spill_bytes": int(info[2])}
-
-
-fed_cycle_cuda.launches = 0
 
 
 def fed_cycle_fused(L, g, taus):

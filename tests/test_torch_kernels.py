@@ -137,6 +137,25 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                 i, i[:, None], i[:, None])
 
 
+def test_fed_cycle_on_the_cpu_runs_the_twin_and_makes_no_counter():
+    """A CPU `fed_cycle_fused` call goes to the plain twin, bit for bit,
+    and makes no device launch counter (kernel A counts only launches on
+    a card); `fed_cycle_cuda` refuses the CPU tensor before it counts."""
+    from cubesat_apds_tpu_torch.ops.kernels import build
+
+    rng = np.random.default_rng(4)
+    L = torch.from_numpy(rng.uniform(0, 1, (2, 24, 20)).astype(np.float32))
+    g = torch.from_numpy(rng.uniform(0.2, 1, (2, 24, 20)).astype(
+        np.float32))
+    taus = tss.fed_tau_by_process_time(2.0)
+    assert torch.equal(tdiff.fed_cycle_fused(L, g, taus),
+                       tdiff.fed_cycle(L, g, taus))
+    with pytest.raises(ValueError, match="CUDA"):
+        tdiff.fed_cycle_cuda(L, g, taus)
+    assert not any(k[0] == "fed_cycle" and not k[1].startswith("cuda")
+                   for k in build._COUNTERS)
+
+
 @pytest.mark.parametrize("q,m", [(2048, 1 << 20), (2048, 1_000_003),
                                  (100, 3000), (5000, 300), (1, 0), (1, 1),
                                  (1, 1_500_000_000)])
@@ -239,12 +258,31 @@ def test_batched_fed_kernel_matches_twin_on_card(cuda_device, batch, h, w,
     taus = (_LEVELS[level - 1][2] if isinstance(level, int)
             else tss.fed_tau_by_process_time(level))
     L, g = L.to(cuda_device), g.to(cuda_device)
-    before = tdiff.fed_cycle_cuda.launches
+    before = tdiff.device_launches(cuda_device)
     got = tdiff.fed_cycle_cuda(L, g, taus)
-    assert tdiff.fed_cycle_cuda.launches == before + 1
-    torch.cuda.synchronize()
+    assert tdiff.device_launches(cuda_device) == before + 1
     for b in range(batch):
         assert torch.equal(got[b], tdiff.fed_cycle(L[b], g[b], taus)), b
+
+
+@pytest.mark.cuda
+def test_fed_counter_counts_a_frames_cycles_on_card(cuda_device):
+    """Kernel A's device counter rises by 15 for a frame's scale space:
+    eager, and replayed from the front half's CUDA graph."""
+    from cubesat_apds_tpu_torch.ops.features import akaze as takaze
+
+    cfg = AkazeConfig()
+    x = torch.from_numpy(_boxes(3, 512, 120)[None]).to(cuda_device)
+    takaze._front_end(x, cfg, cfg.capacity, None)             # first use
+    before = tdiff.device_launches(cuda_device)
+    takaze._front_end(x, cfg, cfg.capacity, None)
+    assert tdiff.device_launches(cuda_device) - before == 15
+    takaze.clear_front_graphs()
+    takaze.front_half(x, cfg, cfg.capacity, None)              # captures
+    before = tdiff.device_launches(cuda_device)
+    takaze.front_half(x, cfg, cfg.capacity, None)
+    assert tdiff.device_launches(cuda_device) - before == 15
+    assert takaze.clear_front_graphs() == 1
 
 
 @pytest.mark.cuda
