@@ -168,27 +168,42 @@
    run under set_sync_debug_mode("error"); undistort_frames on 8 frames
    of 512², card against CPU within 1e-5; each step's time.
 13. Mesh phase (slice 7, one card: a mesh's slots all on cuda:0; it runs
-   after the stream phase): (a) the big DB's 1,048,576 rows, and a
-   ragged 1,000,003-row cut of it padded to a tp multiple, against the
-   frame's 2,048 queries through make_sharded_knn2_fused at tp = 2 and 4:
-   kernel 4 launched once per shard, (d0, d1, i0) bit-equal to one launch
-   over the whole DB, ms per call and the merge's share; the dense maker
-   on 10,240 rows against ops.match.knn2; the tp = 4 call under
+   after the stream phase; slice 14 runs a dp row's work after feature
+   extraction as CUDA graphs, one a key, in the mesh's cache): (a) the
+   big DB's 1,048,576 rows, and a ragged 1,000,003-row cut of it padded
+   to a tp multiple, against the frame's 2,048 queries through
+   make_sharded_knn2_fused at tp = 2 and 4 (one graph a call: the shards'
+   kernel-4 launches and their merge): kernel 4 launched once per shard,
+   (d0, d1, i0) bit-equal to one launch over the whole DB and to the
+   eager partials and merge, the graph's pool within 1.5x the eager
+   call's peak + 64 MiB; ms per call graphed and eager beside one launch
+   over the whole DB, and the eager merge's share; the dense maker on
+   10,240 rows against ops.match.knn2; the tp = 4 call under
    set_sync_debug_mode("error"). (b) make_batch_localizer at dp 2 × tp 2
    on the stream's 8 pool frames against the big DB (a dp row's geometry
    as one batch): each row's packed outputs bit-equal to the
    single-device batch step on its 4 frames, every frame agreeing with
    the lone step as a stream frame must; launches of A, B and 4 per batch
-   (30, 4, 4); frames/s. (c) StreamingLocalizer(mesh=dp 2 × tp 2) over
+   (30, 4, 4); the step bit-equal to its eager composition (each row's
+   features, then `_row_back_half` called directly), the two rows
+   replaying one back-half graph (three graph replays a row: front half,
+   ladder, back half), its nodes and pool beside the eager row's peak
+   (within 1.5x + 64 MiB), host launches eager and graphed, a warmed step
+   under set_sync_debug_mode("error"); frames/s, and eager against
+   graphed paired in one call (turns eager, graphed, graphed, eager).
+   (c) StreamingLocalizer(mesh=dp 2 × tp 2) over
    the stream phase's 1M binary store at batch 8: every frame equal to the
    single-device stream's at batch 4 (a dp row); frames/s, latency
-   p50/p95 in s and in steps. (d) preprocess(mesh=dp 2) on a 2048² crop
-   of the build image, amount_lod 3: the store equal to the single-device
-   build bit for bit.
+   p50/p95 in s and in steps, a step's idle share. (d) preprocess(mesh=dp
+   2) on a 2048² crop of the build image, amount_lod 3: the store equal
+   to the single-device build bit for bit.
    (e) two child processes share the card over gloo, two slots each, one
    global mesh of four: the sharded kNN-2 (dp 1 × tp 4) and the serve
-   step (dp 2 × tp 2, 4 frames) give each the single-process results; a
-   child that fails or outlasts 300 s fails the phase.
+   step (dp 2 × tp 2, 4 frames), split at the collectives (a graph of a
+   process's partials and merge, the all_reduces, a geometry graph),
+   give each the single-process results; a child that fails or outlasts
+   300 s fails the phase. The phase ends with every cached pool's MiB
+   (front, ladder, back, mesh) and drops the mesh's graphs.
 14. Modes phase (slice 8): (a) bench.py's 512² frame through
    detect_and_compute in fast, hybrid (sub 2) and hybrid (sub 3): card
    against CPU bit for bit (keypoints, angles, descriptors); kernel A 15
@@ -1151,14 +1166,16 @@ def front_against_eager(torch, label, x, config, capacity=None,
 
 def graph_pools_mib():
     """MiB held by every cached graph's pool: the front half's, the
-    ladder's and the back half's."""
+    ladder's, the back half's and the mesh's."""
     from cubesat_apds_tpu_torch.ops.features import akaze, ladder
+    from cubesat_apds_tpu_torch.parallel import mesh
     from cubesat_apds_tpu_torch.pipelines import step_graph
 
     return {name: sum(e.pool_bytes for e in entries) / 2 ** 20
             for name, entries in (("front", akaze.front_graphs()),
                                   ("ladder", ladder.ladder_graphs()),
-                                  ("back", step_graph.step_graphs()))}
+                                  ("back", step_graph.step_graphs()),
+                                  ("mesh", mesh.mesh_graphs()))}
 
 
 def refit_matrices(torch, run):
@@ -3413,20 +3430,60 @@ def calibration_phase(torch, dev, card):
 MESH_CHILD_TIMEOUT_S = 300
 
 
+def mesh_graph_against_eager(torch, label, fn, args):
+    """`fn(*args)` through the mesh's CUDA graph of its key
+    (parallel.mesh.run_graph) against `fn(*args)` eager: every output
+    bit for bit, and the graph's pool within 1.5x the eager call's peak
+    (the max_memory_allocated delta of one eager call) plus 64 MiB.
+    Prints the key's graph: nodes, pool, the eager peak and seconds."""
+    from cubesat_apds_tpu_torch.core import step_graph as core_graph
+    from cubesat_apds_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = mesh_mod.run_graph(fn, *args)
+    entry = mesh_mod.mesh_graphs()[-1]               # the key just used
+    torch.cuda.synchronize()
+    lg, lw = core_graph.leaves(got), core_graph.leaves(want)
+    same = [torch.equal(a, b) for a, b in zip(lg, lw)]
+    limit = 1.5 * peak + 64 * 2 ** 20
+    log(f"{label}: the mesh graph of {fn.__name__} against the eager call: "
+        f"{sum(same)} of {len(lw)} output tensors bit-equal; {entry.nodes} "
+        f"nodes, pool {entry.pool_bytes / 2 ** 20:.1f} MiB beside the eager "
+        f"peak {peak / 2 ** 20:.1f} MiB (limit {limit / 2 ** 20:.1f} MiB), "
+        f"warm-up {entry.warmup_s:.3f} s, capture {entry.capture_s:.3f} s")
+    check(len(lg) == len(lw) and all(same),
+          f"{label}: the mesh graph equals the eager {fn.__name__} bit for "
+          "bit")
+    check(entry.pool_bytes <= limit,
+          f"{label}: the mesh graph's pool within 1.5x the eager call's "
+          "peak plus 64 MiB")
+    return {"nodes": entry.nodes, "pool_mib": entry.pool_bytes / 2 ** 20,
+            "eager_peak_mib": peak / 2 ** 20, "warmup_s": entry.warmup_s,
+            "capture_s": entry.capture_s}
+
+
 def mesh_knn(torch, dev, db, q_desc):
     """(a): the big DB's 1,048,576 rows and a ragged 1,000,003-row cut of
     it (~5% invalid, padded with invalid rows to a tp multiple) against
     the frame's 2,048 queries through make_sharded_knn2_fused at tp = 2
-    and 4 on slots of one card: tp kernel-4 launches per call, (d0, d1,
-    i0) bit-equal to one kernel-4 launch over the whole DB; the dense
-    maker on 10,240 rows against ops.match.knn2; the tp = 4 call again
-    under set_sync_debug_mode("error"). Returns the numbers and the tp = 4
-    result on the full DB (the two-process reference)."""
+    and 4 on slots of one card, one mesh graph a call: tp kernel-4
+    launches per call, (d0, d1, i0) bit-equal to one kernel-4 launch over
+    the whole DB and to the eager partials and merge, the graph's pool
+    within its gate; ms graphed, eager and one launch over the whole DB;
+    the dense maker on 10,240 rows against ops.match.knn2; the tp = 4
+    call again under set_sync_debug_mode("error"). Returns the numbers
+    and the tp = 4 result on the full DB (the two-process reference)."""
     from cubesat_apds_tpu_torch.ops import match as M
     from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
     from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
     from cubesat_apds_tpu_torch.parallel.sharded_match import (
-        make_sharded_knn2, make_sharded_knn2_fused, merge_columns)
+        group_top2, make_sharded_knn2, make_sharded_knn2_fused,
+        merge_columns)
 
     q_bits = M.unpack_bits(q_desc)
     q_words = tmk.pack_words(q_desc)
@@ -3438,8 +3495,10 @@ def mesh_knn(torch, dev, db, q_desc):
     for label, desc, valid in (("1M", db.descriptors, db.valid),
                                ("ragged 1,000,003", db.descriptors[:m_rag],
                                 valid_rag)):
-        one = tmk.knn2_hamming_cuda(q_words, *tmk.layout_db_blocks(
-            tmk.pack_words(desc), valid))
+        layout = tmk.layout_db_blocks(tmk.pack_words(desc), valid)
+        one = tmk.knn2_hamming_cuda(q_words, *layout)
+        one_ms = cuda_ms(torch, lambda: tmk.knn2_hamming_cuda(
+            q_words, *layout), reps=5, rounds=3)
         for tp in (2, 4):
             pad = (-desc.shape[0]) % tp
             d_p = torch.cat([desc, desc.new_zeros((pad, 61))])
@@ -3447,7 +3506,7 @@ def mesh_knn(torch, dev, db, q_desc):
             mesh = make_mesh(dp=1, tp=tp, devices=[dev] * tp)
             fn = make_sharded_knn2_fused(mesh, db_block=65536)
             placed = fn.place(d_p, v_p)
-            fn(q_bits, placed)                              # warm-up
+            fn(q_bits, placed)                       # warm-up and capture
             torch.cuda.synchronize()
             _reset_launches()
             got = fn(q_bits, placed)
@@ -3459,15 +3518,33 @@ def mesh_knn(torch, dev, db, q_desc):
                   f"per shard")
             check(all(same), f"sharded kNN-2 {label}, tp={tp}: d0, d1, i0 "
                   f"bit-equal to one kernel-4 launch over the whole DB")
+            graph = mesh_graph_against_eager(
+                torch, f"sharded kNN-2 {label}, tp={tp}", group_top2,
+                (q_bits, *fn.group_args(placed, 0, range(tp))))
+            m_shard = placed.shape[0] // tp
+
+            def eager(fn=fn, placed=placed, tp=tp, m_shard=m_shard):
+                return merge_columns(tp, fn.partials(q_bits, placed),
+                                     m_shard, q_bits.shape[0], dev)
+
+            check(all(torch.equal(g, r) for g, r in zip(eager(), one)),
+                  f"sharded kNN-2 {label}, tp={tp}: the eager partials and "
+                  "merge bit-equal to one launch")
             ms = cuda_ms(torch, lambda: fn(q_bits, placed), reps=5, rounds=3)
+            eager_ms = cuda_ms(torch, eager, reps=5, rounds=3)
             partials = fn.partials(q_bits, placed)
             merge_ms = cuda_ms(torch, lambda: merge_columns(
-                tp, partials, placed.shape[0] // tp, q_bits.shape[0], dev),
+                tp, partials, m_shard, q_bits.shape[0], dev),
                 reps=5, rounds=3)
-            log(f"  {label}, tp={tp}: {ms:.4f} ms per call, merge "
-                f"{merge_ms:.4f} ms ({merge_ms / ms:.1%} of it)")
-            out[f"{label} tp{tp}"] = {"ms": ms, "merge_ms": merge_ms,
-                                      "launches": launches}
+            log(f"  {label}, tp={tp}, {card_line()}: graphed {ms:.4f} ms per "
+                f"call, eager {eager_ms:.4f} ms (its merge {merge_ms:.4f} "
+                f"ms, {merge_ms / eager_ms:.1%} of it); one launch over the "
+                f"whole DB {one_ms:.4f} ms, the graphed call "
+                f"{(ms - one_ms) / ms:.1%} above it")
+            out[f"{label} tp{tp}"] = {
+                "ms": ms, "eager_ms": eager_ms, "merge_ms": merge_ms,
+                "one_launch_ms": one_ms, "launches": launches,
+                "graph": graph}
             if label == "1M" and tp == 4:
                 ref_tp4 = [t.cpu() for t in got]
                 torch.cuda.set_sync_debug_mode("error")
@@ -3488,19 +3565,74 @@ def mesh_knn(torch, dev, db, q_desc):
     return out, ref_tp4
 
 
+def eager_mesh_step(torch, mesh, mdb, frames, camera, config, want_pose):
+    """The mesh serve step's eager composition on one card: each dp row's
+    features (`detect_and_compute_batch`, the front half's and the
+    ladder's graphs, as on the path), then `_row_back_half` called
+    directly, eagerly (the function a row's graph captures), the rows
+    concatenated as the step returns them."""
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        detect_and_compute_batch)
+    from cubesat_apds_tpu_torch.parallel.serve import (
+        _row_args, _row_back_half, _unflat)
+
+    dp = mesh.shape["dp"]
+    lb = frames.shape[0] // dp
+    rows = []
+    for i in range(dp):
+        feats = detect_and_compute_batch(frames[i * lb:(i + 1) * lb],
+                                         config.akaze)
+        rows.append(_row_back_half(*_row_args(mdb, i, feats, camera, config,
+                                              want_pose)))
+    return _unflat([torch.cat([r[k] for r in rows])
+                    for k in range(len(rows[0]))], want_pose)
+
+
+def graph_replays(fn):
+    """The CUDA-graph replays in one call of `fn()`, by graph: the key's
+    function for a front-half, back-half or mesh graph
+    (core/step_graph.py), "ladder" for the capacity ladder's."""
+    import collections
+
+    from cubesat_apds_tpu_torch.core.step_graph import StepGraph
+    from cubesat_apds_tpu_torch.ops.features.ladder import LadderGraph
+
+    seen = collections.Counter()
+    step_call, ladder_call = StepGraph.__call__, LadderGraph.__call__
+
+    def step_replay(self, args):
+        seen[self.key[0].__name__] += 1
+        return step_call(self, args)
+
+    def ladder_replay(self, fields):
+        seen["ladder"] += 1
+        return ladder_call(self, fields)
+
+    StepGraph.__call__, LadderGraph.__call__ = step_replay, ladder_replay
+    try:
+        fn()
+    finally:
+        StepGraph.__call__, LadderGraph.__call__ = step_call, ladder_call
+    return dict(seen)
+
+
 def mesh_serve(torch, dev, loc, pool, config):
     """(b): make_batch_localizer at dp = 2 × tp = 2 on the 8 pool frames
     against the big DB: each dp row's packed outputs bit-equal to the
     single-device batch step on that row's 4 frames (the same batched back
     half), and each frame agreeing with the lone Localizer step as a
-    stream frame must (`_agree`); launches of A, B and 4 per batch;
-    frames/s."""
+    stream frame must (`_agree`); launches of A, B and 4 per batch; the
+    graphed step against its eager composition (bits, graph replays a
+    row, the row graph's pool beside the eager row's peak, host launches,
+    a warmed step with no synchronising call); frames/s, and the eager
+    and graphed steps paired in one call."""
+    from cubesat_apds_tpu_torch.core.step_graph import leaves
     from cubesat_apds_tpu_torch.core.types import select
     from cubesat_apds_tpu_torch.ops.features.akaze import (
         detect_and_compute_batch)
-    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
+    from cubesat_apds_tpu_torch.parallel.mesh import make_mesh, mesh_graphs
     from cubesat_apds_tpu_torch.parallel.serve import (
-        make_batch_localizer, shard_device_db)
+        _row_args, _row_back_half, make_batch_localizer, shard_device_db)
     from cubesat_apds_tpu_torch.pipelines.localize import (
         localize_from_features)
     from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
@@ -3545,6 +3677,33 @@ def mesh_serve(torch, dev, loc, pool, config):
           f"({sum(same)} of {len(same)} rows)")
     check(all(agree), f"serve step: every frame agrees with the lone step "
           f"({sum(agree)} of {len(agree)})")
+
+    def eager():
+        return eager_mesh_step(torch, mesh, mdb, frames, loc.camera, config,
+                               True)
+
+    def graphed():
+        return step(frames, mdb)
+
+    want = eager()
+    bits = [torch.equal(a, b) for a, b in zip(leaves(graphed()),
+                                              leaves(want))]
+    check(len(bits) == len(leaves(want)) and all(bits),
+          f"serve step: the graphed step equals its eager composition bit "
+          f"for bit ({sum(bits)} of {len(bits)} output tensors)")
+    rows = [e for e in mesh_graphs() if e.key[0] is _row_back_half]
+    replays = graph_replays(graphed)
+    check(len(rows) == 1 and replays == {"_front_end": 2, "ladder": 2,
+                                         "_row_back_half": 2},
+          f"serve step: the two dp rows replay one back-half graph, three "
+          f"graph replays a row ({len(rows)} row graphs; replays {replays})")
+    feats0 = detect_and_compute_batch(frames[:lb], config.akaze)
+    graph = mesh_graph_against_eager(
+        torch, "serve step dp=2 x tp=2, row 0", _row_back_half,
+        _row_args(mdb, 0, feats0, loc.camera, config, True))
+    host = {"eager": host_launches(torch, eager),
+            "graphed": host_launches(torch, graphed)}
+    no_sync(torch, graphed, "serve step dp=2 x tp=2 (graphed)")
     secs = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3552,17 +3711,39 @@ def mesh_serve(torch, dev, loc, pool, config):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     fps = len(pool) / float(np.median(secs))
-    log(f"serve step dp=2 x tp=2: median {np.median(secs) * 1e3:.2f} ms a "
-        f"batch of {len(pool)} = {fps:.2f} frames/s")
-    per_batch = dict(launches)
-    return {"frames_per_s": fps, "launches_per_batch": per_batch}
+    legs = {"eager": eager, "graphed": graphed}
+    turns = ["eager", "graphed", "graphed", "eager"]
+    paired = {m: [] for m in legs}
+    for mode in turns:
+        legs[mode]()
+        torch.cuda.synchronize()
+        t = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            legs[mode]()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        paired[mode].append(len(pool) / float(np.median(t)))
+    log(f"serve step dp=2 x tp=2, {card_line()}: median "
+        f"{np.median(secs) * 1e3:.2f} ms a batch of {len(pool)} = {fps:.2f} "
+        f"frames/s; paired (turns {', '.join(turns)}) frames/s eager "
+        f"{paired['eager']}, graphed {paired['graphed']}; host launches a "
+        f"batch eager {host['eager']}, graphed {host['graphed']}; graph "
+        f"replays a batch {replays}; the row graph {graph['nodes']}, pool "
+        f"{graph['pool_mib']:.1f} MiB beside the eager row's peak "
+        f"{graph['eager_peak_mib']:.1f} MiB")
+    return {"frames_per_s": fps, "launches_per_batch": dict(launches),
+            "paired_frames_per_s": paired, "host_launches": host,
+            "graph_replays": replays, "graph": graph}
 
 
 def mesh_stream(torch, dev, ctx, config):
     """(c): StreamingLocalizer(mesh=dp 2 × tp 2) over the stream phase's
     1M binary store at batch 8: every frame's packed outputs equal the
     single-device stream's at the batch of one dp row (4: the same frames
-    through the same batched back half); frames/s, latency p50/p95."""
+    through the same batched back half); frames/s, latency p50/p95, the
+    stage times, a step's idle share; then the same stream again (its
+    frames/s, the same outputs)."""
     from cubesat_apds_tpu_torch.parallel.mesh import make_mesh
     from cubesat_apds_tpu_torch.pipelines.stream import StreamingLocalizer
 
@@ -3605,15 +3786,43 @@ def mesh_stream(torch, dev, ctx, config):
     step_s = wall / steps
     p50, p95 = lat[len(lat) // 2], lat[int(0.95 * len(lat)) - 1]
     fps = len(results) / wall
-    log(f"mesh stream dp=2 x tp=2, batch {b}: {len(results)} frames in "
-        f"{wall:.3f} s = {fps:.2f} frames/s; latency p50 {p50:.3f} s "
-        f"({p50 / step_s:.2f} steps), p95 {p95:.3f} s ({p95 / step_s:.2f} "
-        f"steps); launches per batch "
-        f"{ {k: v / steps for k, v in launches.items()} }")
-    return {"frames_per_s": fps, "p50_s": p50, "p95_s": p95,
+    report = s.times.report()
+    # The same stream again: its rate beside the first run's shows the
+    # spread within the call (the host's share of a step varies).
+    s.times = type(s.times)()
+    t0 = time.perf_counter()
+    again = list(s.run(frames))
+    torch.cuda.synchronize()
+    wall_again = time.perf_counter() - t0
+    fps_again = len(again) / wall_again
+    check(all(np.array_equal(packed(r), packed(w))
+              for r, w in zip(again, results)),
+          "mesh stream: a second run gives the first run's outputs")
+    x = torch.stack([torch.from_numpy(f) for f in frames[:b]]).to(dev)
+    events, busy = device_kernels(torch, lambda: s._step(x))
+    host = host_launches(torch, lambda: s._step(x))
+    idle = 1.0 - busy / (step_s * 1e3)
+    log(f"mesh stream dp=2 x tp=2, batch {b}, {card_line()}: "
+        f"{len(results)} frames in {wall:.3f} s = {fps:.2f} frames/s; "
+        f"latency p50 {p50:.3f} s ({p50 / step_s:.2f} steps), p95 "
+        f"{p95:.3f} s ({p95 / step_s:.2f} steps); launches per batch "
+        f"{ {k: v / steps for k, v in launches.items()} } and "
+        f"{launches.procrustes / steps} Procrustes; a step: "
+        f"{host} host launches, {events} device events, device-busy "
+        f"{busy:.3f} ms of {step_s * 1e3:.2f} ms in the stream (idle share "
+        f"{idle:.4f}; the profiler may miss graph kernels); the stream "
+        f"again {fps_again:.2f} frames/s (idle share "
+        f"{1.0 - busy / (wall_again / steps * 1e3):.4f})")
+    log("\n".join("    " + ln for ln in report.splitlines()))
+    log("  again:\n" + "\n".join("    " + ln for ln in
+                                   s.times.report().splitlines()))
+    per_batch = {k: v / steps for k, v in launches.items()}
+    per_batch["procrustes3"] = launches.procrustes / steps
+    return {"frames_per_s": fps, "frames_per_s_again": fps_again,
+            "p50_s": p50, "p95_s": p95,
             "p50_steps": p50 / step_s, "p95_steps": p95 / step_s,
-            "launches_per_batch": {k: v / steps
-                                   for k, v in launches.items()}}
+            "idle_share": idle, "host_launches_per_step": host,
+            "device_events_per_step": events, "launches_per_batch": per_batch}
 
 
 def mesh_preprocess(torch, dev, image):
@@ -3785,6 +3994,8 @@ def mesh_phase(torch, dev, loc, ctx, image):
     from cubesat_apds_tpu_torch.bench import make_frame
     from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute
 
+    from cubesat_apds_tpu_torch.parallel.mesh import clear_mesh_graphs
+
     config = serving_config()
     t0 = time.perf_counter()
     frame_t = torch.from_numpy(make_frame(np.random.default_rng(SEED)))
@@ -3794,10 +4005,14 @@ def mesh_phase(torch, dev, loc, ctx, image):
     stream = mesh_stream(torch, dev, ctx, config)
     build = mesh_preprocess(torch, dev, image)
     procs = mesh_two_processes(torch, dev, loc.db, frame_t, config)
+    pools = graph_pools_mib()
+    log(f"mesh phase's end: every cached pool, MiB {pools} (total "
+        f"{sum(pools.values()):.1f}); {clear_mesh_graphs()} mesh graphs "
+        "dropped")
     secs = time.perf_counter() - t0
     log(f"mesh phase: {secs:.1f} s")
     return {"knn": knn, "serve": serve, "stream": stream, "build": build,
-            "two_processes": procs, "seconds": secs}
+            "two_processes": procs, "pools_mib": pools, "seconds": secs}
 
 
 # ---- slice 8: the approximate descriptor modes ------------------------------
@@ -4320,12 +4535,14 @@ def cli_stream(torch, dev, root):
               and r["matches"] == x.num_matches for r, x in zip(recs, ref)),
           "stream --mesh 2x2: every line's H, inliers and matches equal the "
           "in-process mesh stream's")
-    check(launches["knn2_hamming"] == 4 * batches
+    warm4 = launches.warmups["knn2_hamming"]
+    check(launches["knn2_hamming"] == 4 * batches + warm4
           and launches["fed_cycle"] == 30 * batches + launches.warmup_a
           and launches["sample_patches"] == 4 * batches + launches.warmup,
           f"stream --mesh 2x2: kNN-2 4, kernel A 30, B 4 launches in each of "
-          f"{batches} batches (one kNN-2 a shard; {launches.warmup} "
-          "kernel-B launches in ladder warm-ups)")
+          f"{batches} batches (one kNN-2 a shard; {warm4} kNN-2 launches in "
+          f"mesh-graph warm-ups, {launches.warmup} kernel-B launches in "
+          "ladder warm-ups)")
     log(f"stream --mesh 2x2: {summary}")
     out_p, l_p, secs_p = _cli(torch, ["--device", "cuda:0"] + argv
                               + ["--pruned"])
@@ -4682,6 +4899,8 @@ def main(argv=None):
             label: r["launches"] for label, r in mesh["knn"].items()}
         kernels[2]["mesh_knn_ms"] = {label: r["ms"]
                                      for label, r in mesh["knn"].items()}
+        kernels[2]["mesh_knn_eager_ms"] = {
+            label: r["eager_ms"] for label, r in mesh["knn"].items()}
         kernels[1]["modes_describe_device_ms"] = {
             label: r["describe_device_ms"]
             for label, r in modes["features"].items()}
@@ -4742,12 +4961,20 @@ def main(argv=None):
             f"{calibration['rms']:.4f} px, undistort 8 × 512² "
             f"{calibration['undistort_8x512_ms']:.4f} ms")
         log(f"card: {card} — mesh phase {mesh['seconds']:.1f} s: serve "
-            f"dp2 x tp2 {mesh['serve']['frames_per_s']:.2f} frames/s, mesh "
+            f"dp2 x tp2 {mesh['serve']['frames_per_s']:.2f} frames/s "
+            f"(paired eager {mesh['serve']['paired_frames_per_s']['eager']}"
+            f", graphed {mesh['serve']['paired_frames_per_s']['graphed']}; "
+            f"host launches {mesh['serve']['host_launches']}), mesh "
             f"stream {mesh['stream']['frames_per_s']:.2f} frames/s (p50 "
             f"{mesh['stream']['p50_s']:.2f} s, p95 "
-            f"{mesh['stream']['p95_s']:.2f} s), sharded kNN-2 ms "
-            + ", ".join(f"{k} {v['ms']:.3f} (merge {v['merge_ms']:.3f})"
-                        for k, v in mesh["knn"].items()))
+            f"{mesh['stream']['p95_s']:.2f} s, idle "
+            f"{mesh['stream']['idle_share']:.3f}; again "
+            f"{mesh['stream']['frames_per_s_again']:.2f}), sharded kNN-2 ms "
+            + ", ".join(f"{k} {v['ms']:.3f} graphed, {v['eager_ms']:.3f} "
+                        f"eager (merge {v['merge_ms']:.3f}), one launch "
+                        f"{v['one_launch_ms']:.3f}"
+                        for k, v in mesh["knn"].items())
+            + f"; pools at the phase's end {mesh['pools_mib']} MiB")
         log(f"card: {card} — modes phase {modes['seconds']:.1f} s: slice "
             "step ms " + ", ".join(
                 f"{k} {v['step_ms']:.2f} (Jaccard {v['jaccard_vs_exact']:.3f})"

@@ -20,6 +20,15 @@ in rank order, as the JAX package's global mesh spans every process's
 devices. A process computes only on its own slots. The partials and the
 replicated outputs cross processes through `all_reduce(MIN)` and
 `broadcast`, the collectives that gloo and NCCL both run on CUDA tensors.
+
+On the card the mesh's local work runs as CUDA graphs, one a key, as the
+JAX package jits its mesh steps: a dp row's partials and their merge
+(parallel/sharded_match.py), or, when one process holds the whole row on
+one device, the row's whole back half (parallel/serve.py). Up to
+`MESH_GRAPHS` of them stay cached (`mesh_graphs()`); `clear_mesh_graphs()`
+drops them and frees their pools. The collectives stay outside every
+graph: across processes a row's graphs end at its `all_reduce` and start
+again after it.
 """
 
 from __future__ import annotations
@@ -32,7 +41,35 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from cubesat_apds_tpu_torch.core import step_graph
+from cubesat_apds_tpu_torch.core.graph_cache import GraphCache, close_all
+
 _ENV = ("APDS_COORDINATOR", "APDS_NUM_PROCESSES", "APDS_PROCESS_ID")
+
+MESH_GRAPHS = 8
+_GRAPHS = GraphCache(MESH_GRAPHS)
+
+
+def clear_mesh_graphs() -> int:
+    """Drop every cached mesh graph and free its memory pool; returns how
+    many there were."""
+    entries = _GRAPHS.clear()
+    close_all(entries)
+    return len(entries)
+
+
+def mesh_graphs() -> list:
+    """The cached mesh graphs, least recently used first (their `key`,
+    `nodes`, `pool_bytes`, `warmup_s`, `capture_s` and
+    `warmup_launches`)."""
+    return _GRAPHS.entries()
+
+
+def run_graph(fn, *args):
+    """`fn(*args)`: on the card through this key's CUDA graph in the mesh's
+    cache (captured at its first call; its pool grows as the capture
+    allocates), on the CPU as it is. `args` hold tensors on one device."""
+    return step_graph.run(_GRAPHS, fn, *args)
 
 
 def initialize_distributed(coordinator: Optional[str] = None,
@@ -101,6 +138,25 @@ class Mesh:
     @property
     def multiprocess(self) -> bool:
         return len(set(self.ranks.ravel().tolist())) > 1
+
+    def row_groups(self, i: int) -> list:
+        """This process's slots of dp row i as (device, columns) groups, one
+        a device, ordered by their first column: the first group holds the
+        row's first local slot."""
+        groups: dict = {}
+        for j in range(self.devices.shape[1]):
+            if self.is_local(i, j):
+                groups.setdefault(self.devices[i, j], []).append(j)
+        return [(d, tuple(cols)) for d, cols in groups.items()]
+
+    def row_device(self, i: int) -> Optional[torch.device]:
+        """The device of dp row i when this process alone holds the whole
+        row and on that one device (its work needs no collective), else
+        None."""
+        groups = self.row_groups(i)
+        if self.multiprocess or len(groups) != 1:
+            return None
+        return groups[0][0]
 
     @property
     def home(self) -> torch.device:

@@ -3,7 +3,8 @@ match → homography → PnP) over a (dp × tp) mesh (port of
 parallel/serve.py).
 
   * frames split over "dp": each dp row runs `detect_and_compute_batch` on
-    its own frames (kernels A and B once per row on the card);
+    its own frames (the front half's and the capacity ladder's graphs,
+    kernels A and B once per row on the card);
   * the descriptor DB shards over "tp": each slot of the row matches all
     of the row's queries against its shard — kernel 4, one launch per
     shard, when a shard holds more than `config.match.db_block` rows or
@@ -14,6 +15,20 @@ parallel/serve.py).
     one batch on the row's first slot, through the same batch-first back
     half as a single-device batch step (`localize_from_matches`), so a
     row's outputs are the single-device batch step's bits on its frames.
+
+On the card the row's work after feature extraction runs as CUDA
+graphs, one a key in the mesh's cache (parallel.mesh.run_graph), the
+port's counterpart of the JAX package's jit of this step. When one
+process holds the whole row on one device (every single-process mesh on
+one card), `_row_back_half` (partials, merge and geometry) is one graph,
+so a warmed row is three graph launches (front half, ladder, back half)
+and their copies and clones; rows of one shape on one device share the
+graph and its static copy of the resident DB. Otherwise each device
+group's partials and merge are a graph (parallel.sharded_match), the
+merge across groups and processes stays eager, and `_row_geometry` is a
+graph on the row's first slot. `_row_back_half` and `_row_geometry`
+stay callable eagerly as the graphs' reference; on the CPU there are no
+graphs.
 
 Across processes a row is computed by the processes that hold its slots
 (each extracts the row's features), every process takes part in each
@@ -34,9 +49,9 @@ from cubesat_apds_tpu_torch.core.types import (
 from cubesat_apds_tpu_torch.ops import match as M
 from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute_batch
 from cubesat_apds_tpu_torch.parallel.mesh import (
-    Mesh, Placed, broadcast_tensors, replicate)
+    Mesh, Placed, broadcast_tensors, replicate, run_graph)
 from cubesat_apds_tpu_torch.parallel.sharded_match import (
-    ShardedKnn2, make_sharded_knn2, make_sharded_knn2_fused)
+    ShardedKnn2, group_top2, make_sharded_knn2, make_sharded_knn2_fused)
 from cubesat_apds_tpu_torch.pipelines.localize import (
     DeviceDb, localize_from_matches)
 
@@ -124,7 +139,7 @@ def make_batch_localizer(mesh: Mesh, camera: CameraModel,
     solved where the DB has world points unless `solve_pose` says
     otherwise."""
     dp = mesh.shape["dp"]
-    tp = mesh.shape["tp"]
+    cameras = {}                  # device → the camera on it, made once
 
     def step(frames, db: MeshDb):
         frames = torch.as_tensor(frames, dtype=torch.float32)
@@ -138,18 +153,25 @@ def make_batch_localizer(mesh: Mesh, camera: CameraModel,
         want_pose = db.has_world if solve_pose is None else solve_pose
         rows = []
         for i in range(dp):
-            local = [j for j in range(tp) if mesh.is_local(i, j)]
+            groups = mesh.row_groups(i)
             out = None
-            if local:
-                dev = mesh.devices[i, local[0]]
+            if groups:
+                dev = groups[0][0]
                 feats = detect_and_compute_batch(
                     frames[i * lb:(i + 1) * lb].to(dev), config.akaze)
-                cap = feats.keypoints.capacity
-                top2 = db.knn2(M.unpack_bits(feats.descriptors.reshape(
-                    lb * cap, -1)), db.shards, row=i)
-                if mesh.is_local(i, 0):
-                    out = _row_geometry(db, i, feats, top2, lb, cap, camera,
-                                        config, want_pose)
+                if dev not in cameras:
+                    cameras[dev] = to_device(camera, dev)
+                if mesh.row_device(i) is not None:
+                    out = run_graph(_row_back_half, *_row_args(
+                        db, i, feats, cameras[dev], config, want_pose))
+                else:
+                    top2 = db.knn2(M.unpack_bits(
+                        feats.descriptors.flatten(0, 1)), db.shards, row=i)
+                    if mesh.is_local(i, 0):
+                        out = run_graph(
+                            _row_geometry, feats.keypoints, top2,
+                            db.xy.parts[(i, 0)], db.obj_points.parts[(i, 0)],
+                            cameras[dev], config, want_pose, db.world_frame)
             elif mesh.multiprocess:      # take part in the row's merge
                 q = lb * config.akaze.capacity
                 db.knn2(torch.zeros((q, M.DESC_BITS_PADDED), dtype=torch.int8,
@@ -167,17 +189,40 @@ def make_batch_localizer(mesh: Mesh, camera: CameraModel,
     return step
 
 
-def _row_geometry(db: MeshDb, i: int, feats, top2, lb: int, cap: int,
-                  camera: CameraModel, config: PipelineConfig,
-                  want_pose: bool):
-    """Row i's geometry on its first slot, its lb frames as one batch →
-    the step's outputs of those frames, flattened (see _flat)."""
-    dev = db.mesh.devices[i, 0]
-    d0, d1, i0 = (t.to(dev).reshape(lb, cap) for t in top2)
-    kp = to_device(feats.keypoints, dev)
+def _row_args(db: MeshDb, i: int, feats, camera: CameraModel,
+              config: PipelineConfig, want_pose: bool) -> tuple:
+    """`_row_back_half`'s arguments for dp row i of `db`, whose slots are
+    all on the device of `feats` and `camera`. Rows on one device pass
+    the same shard, xy and world-point tensors."""
+    tp = db.mesh.shape["tp"]
+    return (feats, db.knn2.group_args(db.shards, i, range(tp)),
+            db.xy.parts[(i, 0)], db.obj_points.parts[(i, 0)], camera,
+            config, want_pose, db.world_frame)
+
+
+def _row_back_half(feats, match: tuple, xy, obj, camera: CameraModel,
+                   config: PipelineConfig, want_pose: bool,
+                   world_frame: str) -> tuple:
+    """A dp row's work after feature extraction, on one device: its lb
+    frames' queries against every shard (`match`: `group_top2`'s
+    arguments after the queries), the merge, then `_row_geometry` →
+    the step's outputs of those frames, flattened (a tuple, see
+    _flat)."""
+    top2 = group_top2(M.unpack_bits(feats.descriptors.flatten(0, 1)), *match)
+    return _row_geometry(feats.keypoints, top2, xy, obj, camera, config,
+                         want_pose, world_frame)
+
+
+def _row_geometry(kp, top2, xy, obj, camera: CameraModel,
+                  config: PipelineConfig, want_pose: bool,
+                  world_frame: str) -> tuple:
+    """A dp row's geometry from its merged top-2 [lb · cap], its lb frames
+    as one batch → the step's outputs of those frames, flattened."""
+    lb, cap = kp.valid.shape
+    d0, d1, i0 = (t.reshape(lb, cap) for t in top2)
     d0 = torch.where(kp.valid, d0, M.INVALID_DIST)
     matches = M._ratio_matches(d0, d1, i0, config.match.ratio)
-    xy, obj = db.xy.parts[(i, 0)], db.obj_points.parts[(i, 0)]
-    r = localize_from_matches(kp, matches, xy, obj, db.world_frame,
-                              to_device(camera, dev), config, want_pose)
-    return _flat(r.homography, r.pose, r.num_matches, r.num_keypoints)
+    r = localize_from_matches(kp, matches, xy, obj, world_frame, camera,
+                              config, want_pose)
+    return tuple(_flat(r.homography, r.pose, r.num_matches,
+                       r.num_keypoints))

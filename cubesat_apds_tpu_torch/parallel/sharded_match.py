@@ -17,12 +17,19 @@ kNN-2 over the whole DB:
     on a CUDA slot, its plain twin on a CPU slot; each shard's kernel
     layout is made once, when the DB is placed (`.place`).
 
-A call computes one dp row (row 0 unless the serve step names another):
-each of the row's slots matches against its shard, and the partials move
-to the row's first local slot and merge there. In a multi-process mesh
-each process merges its own columns and the processes then meet in two
-`all_reduce(MIN)`s: one over the int32 keys, one over the second-best
-candidates.
+A call computes one dp row (row 0 unless the serve step names another).
+The local work is two functions of tensors on one device:
+`shard_partials` (each shard's top-2) and `merge_partials` (their
+top-2 merge), composed as `group_top2`. On the card each group of the
+row's slots that shares a device runs `group_top2` as one CUDA graph a
+key (parallel.mesh.run_graph; the JAX package jits each maker's step).
+When one process holds the whole row on one device, that graph is the
+call. Otherwise the groups' results move to the row's first local slot
+and merge there (eagerly: a top-2 merge of merged groups gives the bits
+of one merge of every shard), and in a multi-process mesh the processes
+then meet in two `all_reduce(MIN)`s: one over the int32 keys, one over
+the second-best candidates. Placing the DB (`place`, kernel 4's
+layouts) and the host's row-count check stay outside every graph.
 """
 
 from __future__ import annotations
@@ -34,7 +41,8 @@ import torch.distributed as dist
 
 from cubesat_apds_tpu_torch.core.types import Matches
 from cubesat_apds_tpu_torch.ops import match as M
-from cubesat_apds_tpu_torch.parallel.mesh import Mesh, Placed, shard_db
+from cubesat_apds_tpu_torch.parallel.mesh import (
+    Mesh, Placed, run_graph, shard_db)
 
 INVALID_KEY = 2**31 - 1
 
@@ -86,41 +94,74 @@ def _merge_processes(d0, d1, i0, m_total: int):
     return d0, cand, i0
 
 
+def shard_partials(q_bits, local, block, inputs) -> tuple:
+    """Each shard's top-2 of `q_bits` on one device: `local(q_bits, shard
+    input, block)` for each of `inputs` (in column order) → a tuple of
+    (d0, d1, i0 local to the shard)."""
+    return tuple(local(q_bits, s, block) for s in inputs)
+
+
+def merge_partials(partials, offsets, m_total: int):
+    """The top-2 merge of per-shard (d0, d1, i0) on one device, shard k's
+    indices offset by `offsets[k]` (its first global row, a Python int;
+    0 for indices already global) → (d0, d1, i0 global)."""
+    d0_all = torch.stack([p[0] for p in partials])
+    d1_all = torch.stack([p[1] for p in partials])
+    i0_all = torch.stack([p[2].to(torch.int32) + off
+                          for p, off in zip(partials, offsets)])
+    return _merge_partials(d0_all, d1_all, i0_all, m_total)
+
+
+def group_top2(q_bits, local, block, inputs, offsets, m_total: int):
+    """The merged top-2 of the shards `inputs` that share one device
+    (`shard_partials`, then `merge_partials`): the function a device
+    group's graph captures."""
+    return merge_partials(shard_partials(q_bits, local, block, inputs),
+                          offsets, m_total)
+
+
+def _invalid_top2(q: int, dev):
+    return (torch.full((q,), M.INVALID_DIST, device=dev),
+            torch.full((q,), M.INVALID_DIST, device=dev),
+            torch.zeros(q, dtype=torch.int32, device=dev))
+
+
 def merge_columns(tp: int, partials: dict, m_shard: int, q: int, dev,
                   across_processes: bool = False):
     """The global top-2 from this process's per-column partials
     {t: (d0, d1, i0 local to shard t)} of a tp-column DB: merged on `dev`,
     then, with `across_processes`, across every process (each calls this
-    with the same tp and q, one that holds no column too)."""
+    with the same tp and q, one that holds no column too). Eager: the
+    reference the graphed calls are held to."""
     m_total = m_shard * tp
     check_merge_rows(m_total)
     if partials:
         cols = sorted(partials)
-        d0_all = torch.stack([partials[t][0].to(dev) for t in cols])
-        d1_all = torch.stack([partials[t][1].to(dev) for t in cols])
-        i0_all = torch.stack([partials[t][2].to(dev).to(torch.int32)
-                              + t * m_shard for t in cols])
-        d0, d1, i0 = _merge_partials(d0_all, d1_all, i0_all, m_total)
+        d0, d1, i0 = merge_partials(
+            [tuple(x.to(dev) for x in partials[t]) for t in cols],
+            [t * m_shard for t in cols], m_total)
     else:
-        d0 = torch.full((q,), M.INVALID_DIST, device=dev)
-        d1 = torch.full((q,), M.INVALID_DIST, device=dev)
-        i0 = torch.zeros(q, dtype=torch.int32, device=dev)
+        d0, d1, i0 = _invalid_top2(q, dev)
     if across_processes:
         d0, d1, i0 = _merge_processes(d0, d1, i0, m_total)
     return d0, d1, i0
 
 
 class ShardedKnn2:
-    """fn(q_bits, db, db_valid, row=0) → (d0, d1, i0) of dp row `row`'s
+    """fn(q_bits, db, db_valid=None, row=0) → (d0, d1, i0) of dp row `row`'s
     slots, merged on the row's first local slot: `db` a global tensor
     (placed on every call) or a `Placed` from `fn.place(db, db_valid)`.
     In a multi-process mesh every process calls it for the row, and
-    every process gets the merged result."""
+    every process gets the merged result.
 
-    def __init__(self, mesh: Mesh, prepare, local):
+    `local(q_bits, shard input, block)` is one shard's top-2, a
+    module-level function (it is part of a graph's key, as is `block`)."""
+
+    def __init__(self, mesh: Mesh, prepare, local, block=None):
         self.mesh = mesh
         self._prepare = prepare      # (db shard, valid shard) → shard input
-        self._local = local          # (q, shard input) → (d0, d1, i0)
+        self.local = local
+        self.block = block
 
     def place(self, db, db_valid=None) -> Placed:
         """The per-shard inputs on every local slot, sharded over tp and
@@ -137,22 +178,42 @@ class ShardedKnn2:
             parts[slot] = made[id(d)]
         return dataclasses.replace(db_p, parts=parts)
 
+    def group_args(self, placed: Placed, row: int, cols) -> tuple:
+        """`group_top2`'s arguments after the queries for the columns
+        `cols` of the row: (local, block, their shard inputs, their global
+        row offsets, the DB's rows)."""
+        m_shard = placed.shape[0] // self.mesh.shape["tp"]
+        return (self.local, self.block,
+                tuple(placed.parts[(row, t)] for t in cols),
+                tuple(t * m_shard for t in cols), placed.shape[0])
+
     def partials(self, q_bits, placed: Placed, row: int = 0) -> dict:
         """{t: (d0, d1, i0 local to shard t)} of this process's slots of
-        the row."""
-        return {t: self._local(q_bits.to(self.mesh.devices[row, t]),
-                               placed.parts[(row, t)])
+        the row, eagerly."""
+        return {t: self.local(q_bits.to(self.mesh.devices[row, t]),
+                              placed.parts[(row, t)], self.block)
                 for t in range(self.mesh.shape["tp"])
                 if self.mesh.is_local(row, t)}
 
     def __call__(self, q_bits, db, db_valid=None, row: int = 0):
         mesh = self.mesh
         placed = db if isinstance(db, Placed) else self.place(db, db_valid)
-        partials = self.partials(q_bits, placed, row)
-        dev = (mesh.devices[row, min(partials)] if partials else mesh.home)
-        tp = mesh.shape["tp"]
-        return merge_columns(tp, partials, placed.shape[0] // tp,
-                             q_bits.shape[0], dev, mesh.multiprocess)
+        m_total = placed.shape[0]            # a tp multiple, checked at place
+        groups = mesh.row_groups(row)
+        tops = [run_graph(group_top2, q_bits.to(dev),
+                          *self.group_args(placed, row, cols))
+                for dev, cols in groups]
+        if mesh.row_device(row) is not None:
+            return tops[0]
+        dev = groups[0][0] if groups else mesh.home
+        if len(tops) > 1:
+            top = merge_partials([tuple(x.to(dev) for x in t) for t in tops],
+                                 [0] * len(tops), m_total)
+        else:
+            top = tops[0] if tops else _invalid_top2(q_bits.shape[0], dev)
+        if mesh.multiprocess:
+            top = _merge_processes(*top, m_total)
+        return top
 
 
 # The dense step's largest [queries, shard rows] distance tile: the JAX
@@ -160,7 +221,7 @@ class ShardedKnn2:
 _DENSE_TILE = 4096 * 2048
 
 
-def _dense_local(q, shard):
+def _dense_local(q, shard, block=None):
     """One shard's top-2 by the dense product, in query chunks whose
     distance tile stays within _DENSE_TILE (the bits do not depend on
     the chunking)."""
@@ -177,7 +238,22 @@ def make_sharded_knn2(mesh: Mesh, axis: str = "tp") -> ShardedKnn2:
     """Sharded top-2 on unpacked bits: (q_bits [Q, 512], db_bits [M, 512]
     {0,1}, db_valid [M]) → (d0, d1, i0); a dense product per shard."""
     _check_axis(axis)
-    return ShardedKnn2(mesh, lambda db, valid: (db, valid), _dense_local)
+    return ShardedKnn2(mesh, _as_shard, _dense_local)
+
+
+def _as_shard(db, valid):
+    return db, valid
+
+
+def _blockwise_local(q, shard, block):
+    return M.knn2_blockwise(q, shard[0], block, shard[1])
+
+
+def _fused_local(q_bits, layout, block):
+    from cubesat_apds_tpu_torch.ops.kernels.match_kernel import (
+        knn2_fused, pack_words)
+
+    return knn2_fused(pack_words(M.pack_bits(q_bits)), layout, block=block)
 
 
 def make_sharded_knn2_blockwise(mesh: Mesh, block: int = 65536,
@@ -186,9 +262,7 @@ def make_sharded_knn2_blockwise(mesh: Mesh, block: int = 65536,
     its rows through the plain blockwise scan (`ops.match.knn2_blockwise`,
     a block unpacked at a time)."""
     _check_axis(axis)
-    return ShardedKnn2(
-        mesh, lambda db, valid: (db, valid),
-        lambda q, s: M.knn2_blockwise(q, s[0], block, s[1]))
+    return ShardedKnn2(mesh, _as_shard, _blockwise_local, block)
 
 
 def make_sharded_knn2_fused(mesh: Mesh, db_block: int = 4096,
@@ -198,17 +272,12 @@ def make_sharded_knn2_fused(mesh: Mesh, db_block: int = 4096,
     the kernel once per shard on a CUDA slot (its plain twin, the
     blockwise scan with blocks of `db_block` rows, on a CPU slot)."""
     from cubesat_apds_tpu_torch.ops.kernels.match_kernel import (
-        knn2_fused, layout_db_blocks, pack_words)
+        layout_db_blocks, pack_words)
 
     _check_axis(axis)
-
-    def local(q_bits, layout):
-        q_words = pack_words(M.pack_bits(q_bits))
-        return knn2_fused(q_words, layout, block=db_block)
-
     return ShardedKnn2(
         mesh, lambda db, valid: layout_db_blocks(pack_words(db), valid),
-        local)
+        _fused_local, db_block)
 
 
 def _check_axis(axis: str):
