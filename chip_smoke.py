@@ -257,6 +257,17 @@
    line, a rate above 0 on the card. (h) `python -m
    cubesat_apds_tpu_torch.cli localize` in a process of its own: exit 0,
    the JSON of (b); its wall time.
+16. Hooks phase (slice 15, after the mesh phase; graft_entry.py, the
+   port of __graft_entry__.py): (a) entry() on the card (a random 512²
+   frame, a 10,240-row DB, capacity 1,024): kernel A 15, B 2 and the
+   Procrustes kernel 1 launch a warmed step, kernel 4 none; the step
+   bit-equal to its eager composition (the front half eager, the
+   ladder, the back half eager); its keypoint and match counts equal to
+   the CPU hook's; host launches, frames/s (median of 10). (b) the dry
+   run at n = 4 over four slots of cuda:0 (dp 2 × tp 2, 64² frames):
+   JAX's assertions, each dp row of the serve step bit-equal to the
+   single-device batch step, the sharded kNN-2 to the dense one, the
+   tile batch to detect_and_compute_batch; its launches and seconds.
 
 Prints a {"kernels": [...]} JSON line, then as its LAST line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -4015,6 +4026,149 @@ def mesh_phase(torch, dev, loc, ctx, image):
             "two_processes": procs, "pools_mib": pools, "seconds": secs}
 
 
+# ---- slice 15: the driver hooks of graft_entry.py ---------------------------
+
+def hooks_entry(torch, dev):
+    """(a): entry() on the card, its step as the driver calls it: the
+    arguments on the card, the warmed step's launches of A, B, 4 and the
+    Procrustes kernel, the step bit-equal to its eager composition (the
+    front half eager, the ladder, the back half eager), the counts equal
+    to the CPU hook's, host launches and frames/s (median of 10)."""
+    from cubesat_apds_tpu_torch import graft_entry
+    from cubesat_apds_tpu_torch.core.step_graph import leaves
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        localize_from_features)
+
+    fn, args = graft_entry.entry()
+    frame, db, camera = args
+    check(all(t.device == dev for t in (frame, db.descriptors, camera.K)),
+          "entry(): the frame, the DB and the camera on the card")
+    config = fn.keywords["config"]
+    fn(*args)                                  # warm-up: the key's capture
+    torch.cuda.synchronize()
+    _reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    log(f"entry() step: launches {launches}, Procrustes "
+        f"{launches.procrustes}")
+    w = launches.warmups
+    check(launches == {"fed_cycle": 15 + w["fed_cycle"],
+                       "sample_patches": 2 + w["sample_patches"],
+                       "knn2_hamming": w["knn2_hamming"]}
+          and launches.procrustes == 1 + w["procrustes3"],
+          "entry() step: kernel A 15, B 2, the Procrustes kernel once and "
+          "kernel 4 never (10,240 rows take the dense match) a warmed step "
+          f"(graph warm-ups in the window: {w})")
+    want = localize_from_features(eager_features(torch, frame, config.akaze),
+                                  db, camera, config, True)
+    lg, lw = leaves(out), leaves(want)
+    same = [torch.equal(a, b) for a, b in zip(lg, lw)]
+    check(len(lg) == len(lw) and all(same),
+          f"entry() step: the graphed step equals its eager composition bit "
+          f"for bit ({sum(same)} of {len(lw)} output tensors)")
+    cfn, cargs = graft_entry.entry(device="cpu")
+    ref = cfn(*cargs)
+    n_kp, n_match = int(out.num_keypoints), int(out.num_matches)
+    check(n_kp == int(ref.num_keypoints) == config.akaze.capacity
+          and n_match == int(ref.num_matches)
+          and bool(torch.isfinite(out.homography.H).all()),
+          f"entry() step: {n_kp} keypoints and {n_match} matches, as the "
+          "CPU hook's step; H finite")
+    host = host_launches(torch, lambda: fn(*args))
+    step_s = timed_steps(torch, lambda: fn(*args), "entry()")
+    return {"launches": dict(launches, procrustes3=launches.procrustes),
+            "keypoints": n_kp, "matches": n_match, "host_launches": host,
+            "frames_per_s": 1.0 / step_s, "step_ms": step_s * 1e3}
+
+
+def hooks_dryrun(torch, dev):
+    """(b): the dry run at n = 4 over 4 slots of the card (dp 2 × tp 2):
+    JAX's assertions (made by the hook), each dp row of its serve step
+    bit-equal to the single-device batch step on the row's frames, the
+    sharded kNN-2 bit-equal to the dense one over the whole DB, the tile
+    batch bit-equal to detect_and_compute_batch on the card; the launches
+    of the whole dry run; its seconds, cold and again."""
+    from cubesat_apds_tpu_torch import graft_entry
+    from cubesat_apds_tpu_torch.ops import match as M
+    from cubesat_apds_tpu_torch.ops.features.akaze import (
+        detect_and_compute_batch)
+    from cubesat_apds_tpu_torch.pipelines.localize import (
+        localize_from_features)
+    from cubesat_apds_tpu_torch.pipelines.stream import _pack_outputs
+
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = graft_entry._dryrun(4)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = _read_launches()
+    mesh, cfg, db = out["mesh"], out["config"], out["db"]
+    check(mesh.shape == {"dp": 2, "tp": 2}
+          and all(d == dev for d in mesh.devices.flat),
+          "dry run: a dp 2 x tp 2 mesh of four slots of the card")
+    log(f"dry run (second): launches {launches}, Procrustes "
+        f"{launches.procrustes}")
+    w = launches.warmups
+    check(launches == {"fed_cycle": 60 + w["fed_cycle"],
+                       "sample_patches": 8 + w["sample_patches"],
+                       "knn2_hamming": w["knn2_hamming"]}
+          and launches.procrustes == 2 + w["procrustes3"],
+          "dry run: kernel A 15 and B 2 a dp row in the serve step and in "
+          "the tile batch, the Procrustes kernel once a row, kernel 4 never "
+          f"(128-row shards) (graph warm-ups in the window: {w})")
+    homog, pose, n_match, n_kp = out["serve"]
+    got = _pack_outputs(homog, n_match, n_kp, pose)
+    frames, lb = out["frames"], out["frames"].shape[0] // 2
+    rows = []
+    for i in range(2):
+        row = localize_from_features(detect_and_compute_batch(
+            frames[i * lb:(i + 1) * lb], cfg.akaze), db, out["camera"], cfg,
+            True)
+        rows.append(torch.equal(got[i * lb:(i + 1) * lb], _pack_outputs(
+            row.homography, row.num_matches, row.num_keypoints, row.pose)))
+    check(all(rows), f"dry run: each dp row of the serve step bit-equal to "
+          f"the single-device batch step on its {lb} frames ({sum(rows)} "
+          "of 2 rows)")
+    dense = M.knn2(M.unpack_bits(out["q_desc"]), M.unpack_bits(db.descriptors),
+                   db_valid=db.valid)
+    check(all(torch.equal(a, b) for a, b in zip(out["knn"], dense)),
+          "dry run: the sharded kNN-2 bit-equal to the dense kNN-2 over the "
+          "whole DB")
+    feats = detect_and_compute_batch(out["tiles"].to(dev), cfg.akaze)
+    host = out["tile_features"]
+    same = np.array_equal(host["desc"], feats.descriptors.cpu().numpy())
+    for f in ("xy", "size", "angle", "response", "octave", "class_id",
+              "valid"):
+        same &= np.array_equal(host[f],
+                               getattr(feats.keypoints, f).cpu().numpy())
+    check(same, "dry run: the dp-split tile batch bit-equal to "
+          "detect_and_compute_batch on the card")
+    log(f"dry run n = 4: {secs[0]:.3f} s cold (its graphs captured), "
+        f"{secs[1]:.3f} s again")
+    return {"launches": dict(launches, procrustes3=launches.procrustes),
+            "seconds": secs, "keypoints": n_kp.tolist()}
+
+
+def hooks_phase(torch, dev):
+    """Slice 15: the driver hooks on the card (module docstring, step
+    16)."""
+    t0 = time.perf_counter()
+    entry = hooks_entry(torch, dev)
+    dryrun = hooks_dryrun(torch, dev)
+    secs = time.perf_counter() - t0
+    log(f"hooks phase, {card_line()}: entry() {entry['frames_per_s']:.2f} "
+        f"frames/s ({entry['step_ms']:.2f} ms a warmed step, "
+        f"{entry['host_launches']} host launches), {entry['keypoints']} "
+        f"keypoints, {entry['matches']} matches; dry run "
+        f"{dryrun['seconds'][0]:.3f} s cold, {dryrun['seconds'][1]:.3f} s "
+        f"again; the phase {secs:.1f} s")
+    return {"entry": entry, "dryrun": dryrun, "seconds": secs}
+
+
 # ---- slice 8: the approximate descriptor modes ------------------------------
 
 MODE_CONFIGS = {   # label: AkazeConfig keywords
@@ -4836,6 +4990,8 @@ def main(argv=None):
         _mark(t_start, "stream phase")
         mesh = mesh_phase(torch, dev, loc, stream_ctx, image)
         _mark(t_start, "mesh phase")
+        hooks = hooks_phase(torch, dev)
+        _mark(t_start, "hooks phase")
         del loc, stream_ctx
         with tempfile.TemporaryDirectory() as root:
             store, ds, db_build, tiles_dir, crop = build_phase(torch, dev, root,
@@ -4895,6 +5051,10 @@ def main(argv=None):
                 for label, r in modes["features"].items()}
             k["cli_launches"] = {label: r[name]
                                  for label, r in cli["launches"].items()}
+        for k in kernels[:4]:
+            k["hooks_entry_launches"] = hooks["entry"]["launches"][k["name"]]
+            k["hooks_dryrun_launches"] = \
+                hooks["dryrun"]["launches"][k["name"]]
         kernels[2]["mesh_knn_launches_per_call"] = {
             label: r["launches"] for label, r in mesh["knn"].items()}
         kernels[2]["mesh_knn_ms"] = {label: r["ms"]

@@ -270,10 +270,11 @@ def adaptive_orient_describe(kps: Keypoints, packed, level_hw,
 
 def detect_and_compute(img, config: AkazeConfig = AkazeConfig(),
                        capacity: int | None = None,
-                       kcontrast=None) -> Features:
+                       kcontrast=None, batched: bool = False) -> Features:
     """img: [H, W] float32 grayscale in [0, 1] → Features, keypoints
     response-sorted and capacity-padded: `detect_and_compute_batch` of a
-    batch of one."""
+    batch of one. `batched` is accepted and ignored: on the TPU it only
+    budgets memory for the FED cycle's strip plan under vmap."""
     img = torch.as_tensor(img, dtype=torch.float32)
     return select(detect_and_compute_batch(img[None], config, capacity,
                                            kcontrast), 0)

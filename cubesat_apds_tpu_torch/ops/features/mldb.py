@@ -228,11 +228,10 @@ def hybrid_blur_sigmas(scale: int, sub: int = 2):
 def approx_mldb_fn(config):
     """The approximate-mode descriptor function of a config, the one
     dispatch point for fast/hybrid: f(grid_stacks, level_hw, xy, size,
-    angle, class_id, octave, valid)."""
+    angle, class_id, octave, valid) on the three per-grid stacks."""
     if config.descriptor_mode == "fast":
-        return mldb_descriptors_fast
-    return functools.partial(mldb_descriptors_hybrid,
-                             sub=config.hybrid_subcells)
+        return _fast_descriptors
+    return functools.partial(_hybrid_descriptors, sub=config.hybrid_subcells)
 
 
 def approx_blur_sigmas_fn(config):
@@ -291,29 +290,55 @@ def _approx_descriptors(centers_per_grid, weights_per_grid, grid_stacks,
     return torch.where(valid[:, None], desc, torch.zeros_like(desc))
 
 
-def mldb_descriptors_fast(grid_stacks, level_hw, xy, size, angle, class_id,
-                          octave, valid):
-    """Approximate MLDB: each cell mean is one sample of a blur-matched
-    pyramid (29 samples a keypoint instead of exact mode's 441).
-
-    grid_stacks: the three per-grid blur-matched stacks, each
-    [L, H, W, 4] (or [B, L, H, W, 4] for a batch of B·n keypoints), grid
-    g blurred with σ = step_g·s_level/√12 per level. The JAX package
-    takes them concatenated along the level axis ([3L, H, W, 4]); the
+def _fast_descriptors(grid_stacks, level_hw, xy, size, angle, class_id,
+                      octave, valid):
+    """mldb_descriptors_fast on the three per-grid stacks, each
+    [L, H, W, 4] (or [B, L, H, W, 4] for a batch of B·n keypoints): the
     port keeps each grid its own tensor, one contiguous kernel-B stack."""
     return _approx_descriptors(
         [c for _, c in _CELL_CENTERS], None, grid_stacks, level_hw, xy,
         size, angle, class_id, octave, valid)
 
 
-def mldb_descriptors_hybrid(grid_stacks, level_hw, xy, size, angle,
-                            class_id, octave, valid, sub: int = 2):
-    """Approximate MLDB between fast and exact: each cell mean is a
-    weighted sum of sub×sub blur-matched subcell samples placed in the
-    keypoint's rotated frame (116 samples a keypoint at sub = 2, 261 at
-    sub = 3). grid_stacks as in mldb_descriptors_fast, blurred with
-    hybrid_blur_sigmas(·, sub)."""
+def _hybrid_descriptors(grid_stacks, level_hw, xy, size, angle, class_id,
+                        octave, valid, sub: int = 2):
+    """mldb_descriptors_hybrid on the three per-grid stacks (as
+    `_fast_descriptors`)."""
     geo = _subcell(sub)
     return _approx_descriptors(
         [c for _, c, _, _ in geo], [w for _, _, w, _ in geo], grid_stacks,
         level_hw, xy, size, angle, class_id, octave, valid)
+
+
+def split_grids(combined_stack, n_levels: int) -> tuple:
+    """The three per-grid [..., L, H, W, 4] stacks of a [..., 3L, H, W, 4]
+    stack concatenated along the level axis (the JAX package's form),
+    as views."""
+    return tuple(combined_stack.narrow(-4, g * n_levels, n_levels)
+                 for g in range(3))
+
+
+def mldb_descriptors_fast(combined_stack, level_hw, n_levels, xy, size,
+                          angle, class_id, octave, valid):
+    """Approximate MLDB: each cell mean is one sample of a blur-matched
+    pyramid (29 samples a keypoint instead of exact mode's 441).
+
+    combined_stack: [3·L, H, W, 4], the three per-grid blur-matched
+    stacks (grid g blurred with σ = step_g·s_level/√12 per level)
+    concatenated along the level axis, as the JAX package takes them;
+    n_levels = L. Each grid's [L, H, W, 4] part is a contiguous view,
+    kernel B's stack as it is."""
+    return _fast_descriptors(split_grids(combined_stack, n_levels), level_hw,
+                             xy, size, angle, class_id, octave, valid)
+
+
+def mldb_descriptors_hybrid(combined_stack, level_hw, n_levels, xy, size,
+                            angle, class_id, octave, valid, sub: int = 2):
+    """Approximate MLDB between fast and exact: each cell mean is a
+    weighted sum of sub×sub blur-matched subcell samples placed in the
+    keypoint's rotated frame (116 samples a keypoint at sub = 2, 261 at
+    sub = 3). combined_stack and n_levels as in mldb_descriptors_fast,
+    the stacks blurred with hybrid_blur_sigmas(·, sub)."""
+    return _hybrid_descriptors(split_grids(combined_stack, n_levels),
+                               level_hw, xy, size, angle, class_id, octave,
+                               valid, sub)

@@ -142,12 +142,13 @@ class ScaleSpace:
 
 
 def build_scale_space(img, config: AkazeConfig = AkazeConfig(),
-                      kcontrast=None) -> ScaleSpace:
+                      kcontrast=None, batched: bool = False) -> ScaleSpace:
     """img: [H, W] or a batch [B, H, W], float32 in [0, 1] → 16-level
     nonlinear scale space.
 
     `kcontrast` overrides the per-image contrast factor (a scalar, or one
-    per image).
+    per image). `batched` is accepted and ignored, as in
+    `fed_cycle_fused`.
     """
     img = img.to(torch.float32)
     meta = evolution_metadata(config)

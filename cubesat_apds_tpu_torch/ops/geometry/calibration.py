@@ -29,7 +29,8 @@ from cubesat_apds_tpu_torch.core.camera import distort_normalized
 from cubesat_apds_tpu_torch.core.config import CalibConfig
 from cubesat_apds_tpu_torch.core.types import CameraModel
 from cubesat_apds_tpu_torch.ops.geometry.homography import dlt_homography
-from cubesat_apds_tpu_torch.ops.geometry.linalg_small import det3x3
+from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
+    det3x3, highest_matmul_precision)
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import (
     matrix_to_rodrigues, rodrigues_to_matrix)
 
@@ -148,6 +149,7 @@ def _levenberg_marquardt(params, obj_xy, img_points, w_flat, iters: int,
     return params
 
 
+@highest_matmul_precision
 def calibrate_camera(obj_xy, img_points, point_valid=None, view_valid=None,
                      config: CalibConfig = CalibConfig()) -> CalibrationResult:
     """obj_xy: [N, 2] planar grid (the z=0 pattern, helpers.rs:38-46);

@@ -23,7 +23,7 @@ from cubesat_apds_tpu_torch.core.config import RansacConfig
 from cubesat_apds_tpu_torch.core.types import (
     HomographyResult, device_const, fold_lead, pick, take_rows, unfold_lead)
 from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
-    bmm, cholesky_solve, det3x3)
+    bmm, cholesky_solve, det3x3, highest_matmul_precision)
 
 
 def _normalize_points(pts, weights):
@@ -46,6 +46,7 @@ def _normalize_points(pts, weights):
     return centered * scale[..., None, None], T
 
 
+@highest_matmul_precision
 def dlt_homography(src, dst, weights=None):
     """Weighted DLT: H with dst ~ H·src from ≥ 4 correspondences, the
     nullspace of the 2N×9 design matrix from the eigenvector of AᵀA with
@@ -77,6 +78,7 @@ def dlt_homography(src, dst, weights=None):
     return H / torch.where(scale.abs() < 1e-12, 1e-12, scale)
 
 
+@highest_matmul_precision
 def dlt_homography_solve(src, dst, weights=None):
     """DLT with H[2,2] = 1: an 8×8 normal-equation solve per hypothesis.
 
@@ -201,10 +203,11 @@ def draws_per_frame(r, b: int, nh: int, k: int, dev, dtype):
     return r.reshape(b, nh, k)
 
 
+@highest_matmul_precision
 def find_homography_ransac(src, dst, valid=None,
                            config: RansacConfig = RansacConfig(),
-                           r=None, method: str = "ransac",
-                           quality=None) -> HomographyResult:
+                           key=None, method: str = "ransac",
+                           quality=None, *, r=None) -> HomographyResult:
     """Robust homography from fixed-capacity correspondences.
 
     src, dst: [..., N, 2]; valid: [..., N] bool. Leading dimensions are a
@@ -221,6 +224,9 @@ def find_homography_ransac(src, dst, valid=None,
     hypothesis h draws from the top n_h of them. Without `quality`,
     "rho" is "ransac".
 
+    key: the seed of the CPU generator that makes the draws (an int);
+    None draws from `config.seed`, as the JAX package's
+    PRNGKey(config.seed) default.
     r: optional draws replacing the seeded ones — [H, 4] (every frame) or
     [..., H, 4] (per frame) indices into the valid entries (in index
     order) for "ransac" and "lmeds", uniform floats in [0, 1) for "rho"
@@ -239,12 +245,13 @@ def find_homography_ransac(src, dst, valid=None,
         quality = torch.as_tensor(quality, device=dev)
     src, dst, valid, quality = fold_lead((src, dst, valid, quality),
                                          len(lead))
-    return unfold_lead(_ransac_batch(src, dst, valid, config, r, method,
-                                     quality), lead)
+    seed = config.seed if key is None else int(key)
+    return unfold_lead(_ransac_batch(src, dst, valid, config, seed, r,
+                                     method, quality), lead)
 
 
-def _ransac_batch(src, dst, valid, config: RansacConfig, r, method: str,
-                  quality) -> HomographyResult:
+def _ransac_batch(src, dst, valid, config: RansacConfig, seed: int, r,
+                  method: str, quality) -> HomographyResult:
     """find_homography_ransac on [B, N] correspondences."""
     b, n = valid.shape
     dev = src.device
@@ -252,13 +259,13 @@ def _ransac_batch(src, dst, valid, config: RansacConfig, r, method: str,
     nh = config.num_hypotheses
 
     if method == "rho" and quality is not None:
-        u = (seeded_uniforms(config.seed, (nh, 4), dev) if r is None
+        u = (seeded_uniforms(seed, (nh, 4), dev) if r is None
              else draws_per_frame(r, b, nh, 4, dev, torch.float32))
         sample_idx = _rho_sample(valid, num_valid, quality, u)
     else:
         valid_first = torch.argsort((~valid).to(torch.uint8), dim=-1,
                                     stable=True)
-        r = (draw_indices(num_valid, (nh, 4), config.seed, dev)
+        r = (draw_indices(num_valid, (nh, 4), seed, dev)
              if r is None else draws_per_frame(r, b, nh, 4, dev, torch.int64))
         sample_idx = take_rows(valid_first, r)               # [B, H, 4]
 

@@ -11,10 +11,50 @@ iteration's start basis) are uploaded once per device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from cubesat_apds_tpu_torch.core.types import device_const
+
+
+def _matmul_precision():
+    """torch's float32 matmul precision, or None where the caller has set
+    TF32 through both of torch's APIs and they disagree (torch then
+    refuses to read it)."""
+    try:
+        return torch.get_float32_matmul_precision()
+    except RuntimeError:
+        return None
+
+
+def highest_matmul_precision(fn):
+    """Run the wrapped call with TF32 off for float32 matmuls
+    (`torch.backends.cuda.matmul.allow_tf32 = False` and
+    `torch.set_float32_matmul_precision("highest")`), then restore the
+    caller's settings.
+
+    The solvers' contractions (DLT normal equations, the EPnP null
+    space, Gauss-Newton steps) need full float32: TF32 keeps 10 mantissa
+    bits, the error the JAX package saw as kilometre-scale positions
+    when the TPU ran them in bfloat16. The port's solvers are wrapped,
+    so a caller that turned TF32 on does not reach them.
+    """
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        matmul = torch.backends.cuda.matmul
+        precision, tf32 = _matmul_precision(), matmul.allow_tf32
+        torch.set_float32_matmul_precision("highest")
+        matmul.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if precision is not None:
+                torch.set_float32_matmul_precision(precision)
+            if matmul.allow_tf32 != tf32:
+                matmul.allow_tf32 = tf32
+    return wrapper
 
 
 def inv3x3(A):

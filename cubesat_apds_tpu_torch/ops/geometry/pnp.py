@@ -29,7 +29,7 @@ from cubesat_apds_tpu_torch.ops.geometry.epnp import epnp
 from cubesat_apds_tpu_torch.ops.geometry.homography import (
     draw_indices, draws_per_frame)
 from cubesat_apds_tpu_torch.ops.geometry.linalg_small import (
-    bmm, cholesky_solve)
+    bmm, cholesky_solve, highest_matmul_precision)
 from cubesat_apds_tpu_torch.ops.geometry.planar import (
     ortho_pose_candidates, planar_pose)
 from cubesat_apds_tpu_torch.ops.geometry.rodrigues import (
@@ -98,18 +98,21 @@ def _recenter(obj, vf):
     return (obj - c_obj[:, None]) / scale[:, None, None], c_obj, scale
 
 
+@highest_matmul_precision
 def solve_pnp_ransac(corr: Correspondences, camera: CameraModel,
-                     config: PnPConfig = PnPConfig(), up=None,
-                     r=None) -> PoseSolution:
+                     config: PnPConfig = PnPConfig(), key=None, up=None,
+                     *, r=None) -> PoseSolution:
     """RANSAC-EPnP over fixed-capacity correspondences.
 
     corr.obj_points [..., N, 3], corr.img_points [..., N, 2] pixels,
     corr.valid [..., N]: leading dimensions are a batch of frames, solved
     in one pass; none is one frame. `up` ([3] or [..., 3] world-frame unit
     vector, optional): the camera centre must lie on its + side for a
-    hypothesis to be selected. `r`: optional [H, sample_size] (every
-    frame) or [..., H, sample_size] (per frame) indices into the valid
-    entries replacing the draws.
+    hypothesis to be selected. `key`: the seed of the CPU generator that
+    makes the draws (an int); None draws from `config.seed`, as the JAX
+    package's PRNGKey(config.seed) default. `r`: optional
+    [H, sample_size] (every frame) or [..., H, sample_size] (per frame)
+    indices into the valid entries replacing the draws.
     """
     obj = corr.obj_points.to(torch.float32)
     lead = obj.shape[:-2]
@@ -118,12 +121,13 @@ def solve_pnp_ransac(corr: Correspondences, camera: CameraModel,
         torch.as_tensor(up, dtype=torch.float32, device=dev), lead + (3,))
     obj, pix, valid, up_n = fold_lead(
         (obj, corr.img_points.to(torch.float32), corr.valid, up_n), len(lead))
-    return unfold_lead(_pnp_batch(obj, pix, valid, camera, config, up_n, r),
-                       lead)
+    seed = config.seed if key is None else int(key)
+    return unfold_lead(_pnp_batch(obj, pix, valid, camera, config, up_n,
+                                  seed, r), lead)
 
 
 def _pnp_batch(obj, pix, valid, camera: CameraModel, config: PnPConfig,
-               up_n, r) -> PoseSolution:
+               up_n, seed: int, r) -> PoseSolution:
     """solve_pnp_ransac on [B, N] correspondences (up_n [B, 3] or None)."""
     b = valid.shape[0]
     dev = obj.device
@@ -139,7 +143,7 @@ def _pnp_batch(obj, pix, valid, camera: CameraModel, config: PnPConfig,
 
     nh, ns = config.num_hypotheses, config.sample_size
     valid_first = torch.argsort((~valid).to(torch.uint8), dim=-1, stable=True)
-    r = (draw_indices(num_valid, (nh, ns), config.seed, dev) if r is None
+    r = (draw_indices(num_valid, (nh, ns), seed, dev) if r is None
          else draws_per_frame(r, b, nh, ns, dev, torch.int64))
     samp = take_rows(valid_first, r)                         # [B, H, S]
     obj_s, uv_s = take_rows(obj, samp), take_rows(uv_n, samp)

@@ -226,9 +226,11 @@ def plan_info(plan: FedPlan) -> dict:
             "spill_bytes": int(info[2])}
 
 
-def fed_cycle_fused(L, g, taus):
+def fed_cycle_fused(L, g, taus, batched: bool = False):
     """FED cycle on L's device: the kernel for CUDA tensors, the plain
-    twin for CPU tensors."""
+    twin for CPU tensors. `batched` is accepted and ignored: on the TPU
+    it halves the VMEM budget of the strip plan under vmap, and kernel A
+    plans its tiles from the shape alone."""
     if L.device.type == "cuda":
         return fed_cycle_cuda(L.contiguous(), g.contiguous(), taus)
     if L.device.type == "cpu":

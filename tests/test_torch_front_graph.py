@@ -94,6 +94,20 @@ def test_front_key_holds_kcontrast_shape():
 
 # ---- no graph on the CPU ----------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def no_cached_graphs():
+    """Drop the graphs that earlier test files of this process left in
+    the four process-wide caches (front half, ladder, back half, mesh),
+    so that this file's tests see only the graphs they make."""
+    from cubesat_apds_tpu_torch.ops.features import ladder
+    from cubesat_apds_tpu_torch.parallel import mesh
+
+    takaze.clear_front_graphs()
+    ladder.clear_ladder_graphs()
+    step_graph.clear_step_graphs()
+    mesh.clear_mesh_graphs()
+
+
 @pytest.fixture(scope="module")
 def imgs():
     return _frames((7, 3), 128)

@@ -263,7 +263,8 @@ def test_port_imports_no_jax():
         "        'ops.warp', 'core.attitude', 'utils.synthetic',\n"
         "        'utils.accuracy', 'ops.geometry.calibration',\n"
         "        'ops.geometry.chessboard', 'pipelines.calibrate',\n"
-        "        'cli', 'bench', 'utils.progress', 'utils.viz'}\n"
+        "        'cli', 'bench', 'utils.progress', 'utils.viz',\n"
+        "        'graft_entry'}\n"
         "missing = {w for w in want if p.__name__ + '.' + w not in names}\n"
         "assert not missing, missing\n"
         "bad = sorted(k for k in sys.modules\n"

@@ -236,6 +236,35 @@ def test_approx_descriptors_match_jax_bit_exact(jax_ref, name):
 
 
 @pytest.mark.parametrize("name", list(MODES))
+def test_public_approx_descriptors_take_jax_combined_stack(jax_ref, name):
+    """mldb_descriptors_fast / _hybrid called with the JAX package's
+    arguments (combined_stack [3L, H, W, 4], level_hw, n_levels, xy,
+    size, angle, class_id, octave, valid[, sub]) on JAX's stack,
+    keypoints and angles: bit-exact with JAX's descriptors. The stack's
+    three grid parts are contiguous views, kernel B's input as it is."""
+    kps = _jax_kps(jax_ref)
+    level_hw = torch.from_numpy(np.array(jax_ref["level_hw"]))
+    angle = torch.from_numpy(np.array(jax_ref[name]["angle"], np.float32))
+    n_lvl = len(jax_ref["Lt"])
+    combined = _bf16(jax_ref[name]["combined"])
+    grids = tmldb.split_grids(combined, n_lvl)
+    assert all(g.is_contiguous() and g.shape[0] == n_lvl for g in grids)
+    args = (combined, level_hw, n_lvl, kps.xy, kps.size, angle,
+            kps.class_id, kps.octave, kps.valid)
+    if name == "fast":
+        got = tmldb.mldb_descriptors_fast(*args)
+    else:
+        got = tmldb.mldb_descriptors_hybrid(
+            *args, sub=MODES[name]["hybrid_subcells"])
+    got = got.numpy()
+    ref = np.asarray(jax_ref[name]["desc"])
+    v = kps.valid.numpy()
+    rate, n = _bits_differing(got, ref, v)
+    assert v.sum() > 20 and rate == 0.0
+    assert not got[~v].any()
+
+
+@pytest.mark.parametrize("name", list(MODES))
 def test_detect_and_compute_modes_end_to_end(img, jax_ref, name):
     """The port's detect_and_compute on the 128² frame in each mode
     against JAX's stages on the same frame, test_torch_features.py's
