@@ -18,7 +18,13 @@ pipelines/stream.py).
     the full-DB fallback, synchronously;
   * with a mesh, each batch runs the mesh-parallel serve step (frames
     over dp, the DB over tp; parallel.serve);
-  * per-stage wall-clock stats (`StageTimes`) feed the cadence report.
+  * per-stage wall-clock stats, spans and counts (`StageTimes`) feed the
+    cadence report: each frame's `wait` (enqueue to its batch's dispatch)
+    and `hold` (its step's end to its yield), each batch's device `step`
+    by CUDA events placed on the host clock once its read-back returned,
+    what the consumer thread was doing (`frames`, `dispatch`,
+    `device_wait`, `yielded`), and the back half's `query_slots` and
+    `live_keypoints`.
 
 As in the JAX stream, up to `prefetch` frames' steps (`prefetch // batch`
 batches, at least one) are queued before the oldest result is fetched:
@@ -45,7 +51,8 @@ from cubesat_apds_tpu_torch.ops.features.akaze import detect_and_compute_batch
 from cubesat_apds_tpu_torch.pipelines.localize import (
     PrunedDeviceDb, back_half, localize_frame_pruned_fallback_jit,
     pruned_back_half, resident_db)
-from cubesat_apds_tpu_torch.utils.profiling import StageTimes
+from cubesat_apds_tpu_torch.utils.profiling import (
+    StageTimes, clock_drift_us, host_anchor)
 
 _MARGIN = 0.25
 
@@ -74,6 +81,31 @@ def _as_float(frames):
     if frames.dtype == torch.uint8:
         return frames.to(torch.float32) / 255.0
     return frames.to(torch.float32)
+
+
+def _mark(stream):
+    """A timing event recorded on `stream` now (None off the card)."""
+    if stream is None:
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+@dataclasses.dataclass
+class _Batch:
+    """A batch in flight: what `_finish_batch` needs once its packed
+    outputs are read back."""
+    id: int
+    ids: list              # its frames' ids, padded rows included
+    t_enq: list            # each frame's enqueue (host clock)
+    n_real: int
+    out: torch.Tensor      # [B, 21] packed ([B, 23] pruned)
+    frames: Optional[torch.Tensor]   # pruned: the batch, for a fallback
+    slots: int             # the features' slots a frame (query slots)
+    t_dispatch: float      # dispatch start (host clock)
+    t_returned: float      # `_step` returned: the step's end on the CPU
+    step: Optional[tuple]  # on the card: the step's (start, end) events
 
 
 @dataclasses.dataclass
@@ -149,6 +181,10 @@ class StreamingLocalizer:
         self.batch = max(int(batch), 1)
         self.fallback_frames = 0
         self.times = StageTimes()
+        # Query slots a frame: the features' slots, which `_step` reads off
+        # their shape (the mesh step's features, at the config's capacity,
+        # stay inside it).
+        self._slots = config.akaze.capacity
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
@@ -163,6 +199,7 @@ class StreamingLocalizer:
             homog, pose, n_match, n_kp = self._serve(frames, self.db)
             return _pack_outputs(homog, n_match, n_kp, pose)
         feats = detect_and_compute_batch(frames, self.config.akaze)
+        self._slots = feats.descriptors.shape[-2]
         if self._pruned:
             pr = pruned_back_half(feats, tuple(frames.shape[1:]), self.db,
                                   self.camera, self.config, self.solve_pose,
@@ -229,10 +266,21 @@ class StreamingLocalizer:
         grayscale); frames must share one shape. A final partial batch is
         padded by repeating its last frame; padded rows are never
         yielded.
+
+        Every record goes to `self.times` as it stands at that moment, so
+        a caller may swap in a fresh StageTimes between runs. On the card
+        the run waits for the device twice: once at its start, to anchor
+        the step's CUDA events to the host clock, and once when drained,
+        to count the anchor's drift (`clock_drift_us`).
         """
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         producer_error: list = []
+        if self._copy_stream is not None:
+            anchor = host_anchor(self.device)
+            step_stream = torch.cuda.current_stream(self.device)
+        else:
+            anchor = step_stream = None
 
         def producer():
             # The sentinel is ALWAYS enqueued (even on producer failure),
@@ -260,11 +308,14 @@ class StreamingLocalizer:
 
         threading.Thread(target=producer, daemon=True).start()
 
-        in_flight = []  # [(ids, t_enq, out, n_real, frames)]
+        in_flight: list = []  # [_Batch]
         pend: list = []
         done = False
+        n_batch = 0
         while not done:
+            t = time.perf_counter()
             item = q.get()
+            self.times.span("frames", t, time.perf_counter())
             if item is sentinel:
                 if producer_error:
                     raise producer_error[0]
@@ -284,29 +335,46 @@ class StreamingLocalizer:
             # by the batch-fill time).
             t_enq = [p[3] for p in pend]
             t0 = time.perf_counter()
-            batch = torch.stack([self._on_step_stream(p[1], p[2])
-                                 for p in pend])
+            uploaded = [self._on_step_stream(p[1], p[2]) for p in pend]
+            start = _mark(step_stream)   # after the waits on the uploads
+            batch = torch.stack(uploaded)
             out = self._step(batch)
-            self.times.add("dispatch", time.perf_counter() - t0)
-            in_flight.append((ids, t_enq, out, n_real,
-                              batch if self._pruned else None))
+            t_returned = time.perf_counter()
+            self.times.stage("dispatch", t0, t_returned)
+            step = None if start is None else (start, _mark(step_stream))
+            in_flight.append(_Batch(
+                id=n_batch, ids=ids, t_enq=t_enq, n_real=n_real, out=out,
+                frames=batch if self._pruned else None, slots=self._slots,
+                t_dispatch=t0, t_returned=t_returned, step=step))
+            n_batch += 1
             pend = []
             while len(in_flight) > max(self.prefetch // self.batch, 1):
-                yield from self._finish_batch(*in_flight.pop(0))
+                yield from self._finish_batch(in_flight.pop(0), anchor)
         while in_flight:
-            yield from self._finish_batch(*in_flight.pop(0))
+            yield from self._finish_batch(in_flight.pop(0), anchor)
+        if anchor is not None:
+            self.times.count("clock_drift_us",
+                             round(clock_drift_us(anchor, self.device)))
 
-    def _finish_batch(self, ids, t_enq, out, n_real, frames=None):
+    def _finish_batch(self, b: _Batch, anchor):
         t0 = time.perf_counter()
-        packed = out.cpu().numpy()                 # ONE D2H copy per batch
-        self.times.add("device_wait", time.perf_counter() - t0)
-        for b in range(n_real):
-            row = packed[b]
-            if frames is not None:
-                row = self._maybe_fallback(row, frames[b])
-            res = self._unpack(ids[b], row, time.perf_counter() - t_enq[b])
+        packed = b.out.cpu().numpy()               # ONE D2H copy per batch
+        self.times.stage("device_wait", t0, time.perf_counter())
+        step_end = (b.t_returned if b.step is None else
+                    self.times.device_span("step", anchor, *b.step, id=b.id))
+        self.times.count("query_slots", len(b.ids) * b.slots)
+        for i in range(b.n_real):
+            row = packed[i]
+            if b.frames is not None:
+                row = self._maybe_fallback(row, b.frames[i])
+            t = time.perf_counter()
+            res = self._unpack(b.ids[i], row, t - b.t_enq[i])
             self.times.add("total_latency", res.latency_s)
+            self.times.count("live_keypoints", res.num_keypoints)
+            self.times.span("wait", b.t_enq[i], b.t_dispatch, b.ids[i], b.id)
+            self.times.span("hold", step_end, t, b.ids[i], b.id)
             yield res
+            self.times.span("yielded", t, time.perf_counter())
 
     def _unpack(self, frame_id: int, packed: np.ndarray,
                 latency_s: float) -> StreamResult:

@@ -245,6 +245,96 @@ def test_stage_times_report():
     assert t.values("b") == [0.01] and t.values("c") == []
 
 
+class _Event:
+    """A stand-in for a timing CUDA event: `ms` on the device's clock."""
+
+    def __init__(self, ms):
+        self.ms = ms
+
+    def elapsed_time(self, other):
+        return other.ms - self.ms
+
+
+def test_stage_times_spans_counts_and_starved_split():
+    """Spans, counts, the union of the `step` spans and the split of its
+    gaps by the consumer's spans, on hand-made intervals (binary
+    fractions, so every number is exact); report() prints the split."""
+    t = StageTimes()
+    assert t.starved() is None
+    for s, e in [(1.0, 3.0), (0.0, 2.0), (4.0, 5.0), (7.0, 8.0)]:
+        t.span("step", s, e, id=int(s))
+    t.span("frames", 2.5, 3.5)            # 0.5 of the gap (3, 4)
+    t.stage("dispatch", 3.5, 3.75)        # 0.25 of it
+    t.stage("device_wait", 5.0, 5.5)      # 0.5 of the gap (5, 7)
+    t.span("yielded", 6.0, 6.5)
+    t.span("yielded", 6.5, 9.0)           # 1.0 in all, past the window
+    t.span("wait", 0.0, 1.0, id=3, parent=0)
+    t.count("query_slots", 8)
+    t.count("live_keypoints")
+    t.count("live_keypoints", 2)
+    assert t.spans("wait") == [(0.0, 1.0, 3, 0)]
+    assert t.spans("step")[1] == (0.0, 2.0, 0, None) and t.spans("x") == []
+    assert t.values("dispatch") == [0.25]
+    assert t.counts() == {"query_slots": 8, "live_keypoints": 3}
+    st = t.starved()
+    assert (st["window_s"], st["busy_s"], st["share"]) == (8.0, 5.0, 0.375)
+    assert st["split"] == {"frames": 0.5, "dispatch": 0.25,
+                           "device_wait": 0.5, "yielded": 1.0,
+                           "other": 0.75}
+    rep = t.report()
+    assert ("device starved 37.50% of 8.000 s: frames 6.25%, dispatch "
+            "3.12%, device_wait 6.25%, yielded 12.50%, other 9.38%") in rep
+    assert "counts: live_keypoints 3, query_slots 8" in rep
+    assert "wait (span)" in rep and "step (span)" in rep
+
+
+def test_stage_times_device_span_on_the_host_clock():
+    """A device span starts at the anchor's host time plus the anchor
+    event's time to the start event, and lasts the events' own time."""
+    t = StageTimes()
+    end = t.device_span("step", (_Event(100.0), 10.0), _Event(600.0),
+                        _Event(850.0), id=4)
+    assert end == 10.75 and t.spans("step") == [(10.5, 10.75, 4, None)]
+
+
+def test_stream_records_each_frames_spans_and_counts(db):
+    """5 frames at batch 2 on the CPU: each yielded frame has one `wait`
+    and one `hold` under its frame_id, its batch as parent, in the order
+    arrival <= enqueue <= dispatch start <= step end <= yield; one
+    `dispatch` a batch; the counts cover every batch's slots and the
+    yielded frames' keypoints; no device span off the card."""
+    s = _stream(db, solve_pose=False, batch=2)
+    arrival, yielded = [], []
+
+    def frames():
+        for f in _frames(5):
+            arrival.append(time.perf_counter())
+            yield f
+
+    results = []
+    for r in s.run(frames()):
+        yielded.append(time.perf_counter())
+        results.append(r)
+    t = s.times
+    wait = {sp[2]: sp for sp in t.spans("wait")}
+    hold = {sp[2]: sp for sp in t.spans("hold")}
+    dispatch = t.spans("dispatch")
+    assert len(t.spans("wait")) == len(t.spans("hold")) == 5
+    assert len(dispatch) == len(t.values("dispatch")) == 3
+    for i, r in enumerate(results):
+        enq, disp, _, parent = wait[r.frame_id]
+        step_end, y, _, hold_parent = hold[r.frame_id]
+        assert parent == hold_parent == i // 2
+        assert disp == dispatch[parent][0]
+        assert arrival[i] <= enq <= disp <= step_end <= y <= yielded[i]
+        assert step_end == hold[results[2 * parent].frame_id][0]
+    assert t.spans("step") == [] and t.starved() is None
+    assert t.counts() == {"query_slots": 3 * 2 * CFG.akaze.capacity,
+                          "live_keypoints": sum(r.num_keypoints
+                                                for r in results)}
+    assert len(t.spans("yielded")) == 5 and len(t.spans("frames")) == 6
+
+
 def _packed_of(res):
     """A LocalizationResult's outputs in the stream's packed order."""
     h, p = res.homography, res.pose
