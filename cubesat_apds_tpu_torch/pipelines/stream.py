@@ -18,19 +18,26 @@ pipelines/stream.py).
     the full-DB fallback, synchronously;
   * with a mesh, each batch runs the mesh-parallel serve step (frames
     over dp, the DB over tp; parallel.serve);
+  * each batch's packed outputs land on the host when its own step ends:
+    a non-blocking copy into a pinned slot of a small ring that the
+    localizer owns, queued on the step's stream right after the step, and
+    an event that marks its landing;
   * per-stage wall-clock stats, spans and counts (`StageTimes`) feed the
     cadence report: each frame's `wait` (enqueue to its batch's dispatch)
     and `hold` (its step's end to its yield), each batch's device `step`
-    by CUDA events placed on the host clock once its read-back returned,
-    what the consumer thread was doing (`frames`, `dispatch`,
-    `device_wait`, `yielded`), and the back half's `query_slots` and
-    `live_keypoints`.
+    by CUDA events placed on the host clock once it has landed, what the
+    consumer thread was doing (`frames`, `dispatch`, `device_wait`,
+    `yielded`), the back half's `query_slots` and `live_keypoints`, and
+    `readback_early`, the batches fetched because they had landed before
+    anything forced them.
 
-As in the JAX stream, up to `prefetch` frames' steps (`prefetch // batch`
-batches, at least one) are queued before the oldest result is fetched:
-the AKAZE front end reads nothing back to the host, so its launches run
-ahead of the device, and the back half's constants and draws are uploaded
-once.
+Up to `prefetch` frames' steps (`prefetch // batch` batches, at least one)
+stay in flight, and a batch is fetched when its step has landed, or when
+the in-flight limit forces it: before the consumer waits for a frame it
+fetches every batch that has landed, and while it waits it takes
+whichever comes first, the next frame or the oldest batch's landing. The
+AKAZE front end reads nothing back to the host, so its launches run ahead
+of the device, and the back half's constants and draws are uploaded once.
 """
 
 from __future__ import annotations
@@ -55,6 +62,10 @@ from cubesat_apds_tpu_torch.utils.profiling import (
     StageTimes, clock_drift_us, host_anchor)
 
 _MARGIN = 0.25
+# While batches are in flight, the consumer waits for a frame this long at
+# a time between looks at the oldest batch's landing (s): the most a
+# landed batch waits to be seen.
+_POLL_S = 2e-4
 
 
 def _pack_outputs(h, num_matches, num_keypoints, pose):
@@ -83,6 +94,20 @@ def _as_float(frames):
     return frames.to(torch.float32)
 
 
+def _next(q, landing):
+    """The next item of `q`; with `landing` (the oldest in-flight batch's
+    event), None if that event completes first. The wait holds the
+    interpreter lock only to look at the event, every _POLL_S."""
+    if landing is None:
+        return q.get()
+    while True:
+        try:
+            return q.get(timeout=_POLL_S)
+        except queue.Empty:
+            if landing.query():
+                return None
+
+
 def _mark(stream):
     """A timing event recorded on `stream` now (None off the card)."""
     if stream is None:
@@ -95,12 +120,13 @@ def _mark(stream):
 @dataclasses.dataclass
 class _Batch:
     """A batch in flight: what `_finish_batch` needs once its packed
-    outputs are read back."""
+    outputs have landed."""
     id: int
     ids: list              # its frames' ids, padded rows included
     t_enq: list            # each frame's enqueue (host clock)
     n_real: int
-    out: torch.Tensor      # [B, 21] packed ([B, 23] pruned)
+    host: torch.Tensor     # [B, 21] packed ([B, 23] pruned), on the host
+    landed: Optional[torch.cuda.Event]   # on the card: `host` has landed
     frames: Optional[torch.Tensor]   # pruned: the batch, for a fallback
     slots: int             # the features' slots a frame (query slots)
     t_dispatch: float      # dispatch start (host clock)
@@ -133,7 +159,8 @@ class StreamingLocalizer:
     (load_pruned_device_db) switches every frame to pruned serving; frames
     whose coarse fix fails or whose window overflows rerun synchronously
     through the full-DB fallback (`fallback_frames` counts them). Up to
-    `prefetch` frames' steps stay in flight before a result is fetched.
+    `prefetch` frames' steps stay in flight; a batch is fetched when its
+    step has landed, or when the in-flight limit forces it.
 
     `mesh` (parallel.mesh.make_mesh) serves every batch through the
     mesh-parallel step (parallel.serve.make_batch_localizer): frames over
@@ -187,6 +214,9 @@ class StreamingLocalizer:
         self._slots = config.akaze.capacity
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        # On the card: the pinned slots the batches land in, one more than
+        # the batches in flight; made at the first step, kept for every run.
+        self._landing: list = []
 
     # ---- the device step ------------------------------------------------
 
@@ -231,6 +261,26 @@ class StreamingLocalizer:
         self.times.add("fallback", time.perf_counter() - t0)
         return packed
 
+    def _land(self, out, stream, n: int):
+        """Send batch `n`'s packed outputs to the host: on the card, a
+        non-blocking copy into a pinned slot of the localizer's ring,
+        queued on `stream` after the step (so no later step can overwrite
+        `out` first), and an event recorded after it; off the card, `out`
+        itself, landed already. Returns (the host tensor, the event or
+        None)."""
+        if stream is None:
+            return out, None
+        if not self._landing:
+            self._landing = [torch.empty(out.shape, dtype=out.dtype,
+                                         pin_memory=True) for _ in
+                             range(max(self.prefetch // self.batch, 1) + 1)]
+        host = self._landing[n % len(self._landing)]
+        with torch.cuda.stream(stream):
+            host.copy_(out, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record(stream)
+        return host, landed
+
     # ---- upload ---------------------------------------------------------
 
     def _upload(self, f: np.ndarray):
@@ -270,8 +320,11 @@ class StreamingLocalizer:
         Every record goes to `self.times` as it stands at that moment, so
         a caller may swap in a fresh StageTimes between runs. On the card
         the run waits for the device twice: once at its start, to anchor
-        the step's CUDA events to the host clock, and once when drained,
-        to count the anchor's drift (`clock_drift_us`).
+        the step's CUDA events to the host clock (and to know that no
+        earlier run still writes the landing slots), and once when
+        drained, to count the anchor's drift (`clock_drift_us`). Besides,
+        a batch that the in-flight limit or the drain forces waits on its
+        own landing event.
         """
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
@@ -313,9 +366,15 @@ class StreamingLocalizer:
         done = False
         n_batch = 0
         while not done:
+            while in_flight and (in_flight[0].landed is None
+                                 or in_flight[0].landed.query()):
+                self.times.count("readback_early")
+                yield from self._finish_batch(in_flight.pop(0), anchor)
             t = time.perf_counter()
-            item = q.get()
+            item = _next(q, in_flight[0].landed if in_flight else None)
             self.times.span("frames", t, time.perf_counter())
+            if item is None:                  # the oldest batch landed
+                continue
             if item is sentinel:
                 if producer_error:
                     raise producer_error[0]
@@ -342,8 +401,10 @@ class StreamingLocalizer:
             t_returned = time.perf_counter()
             self.times.stage("dispatch", t0, t_returned)
             step = None if start is None else (start, _mark(step_stream))
+            host, landed = self._land(out, step_stream, n_batch)
             in_flight.append(_Batch(
-                id=n_batch, ids=ids, t_enq=t_enq, n_real=n_real, out=out,
+                id=n_batch, ids=ids, t_enq=t_enq, n_real=n_real, host=host,
+                landed=landed,
                 frames=batch if self._pruned else None, slots=self._slots,
                 t_dispatch=t0, t_returned=t_returned, step=step))
             n_batch += 1
@@ -358,7 +419,9 @@ class StreamingLocalizer:
 
     def _finish_batch(self, b: _Batch, anchor):
         t0 = time.perf_counter()
-        packed = b.out.cpu().numpy()               # ONE D2H copy per batch
+        if b.landed is not None:
+            b.landed.synchronize()
+        packed = b.host.numpy().copy()       # frees the slot for a later batch
         self.times.stage("device_wait", t0, time.perf_counter())
         step_end = (b.t_returned if b.step is None else
                     self.times.device_span("step", anchor, *b.step, id=b.id))

@@ -59,7 +59,7 @@ class StageTimes:
         placed on the host clock: it starts at the anchor's host time plus
         the time from the anchor's event to `start`, and lasts the time
         from `start` to `end`. Call it only once `end` has completed (after
-        a read-back queued behind it returned), so that nothing waits.
+        an event queued behind it has), so that nothing waits.
         Returns the span's end on the host clock."""
         ev, t = anchor
         t0 = t + ev.elapsed_time(start) / 1e3
@@ -116,7 +116,9 @@ class StageTimes:
 
     def report(self) -> str:
         """The stage table; then the spans that are no stage, the
-        device's starved share and its split, and the counts."""
+        device's starved share and its split, the stream's batches read
+        back early (`readback_early`) as a share of its `dispatch`
+        samples, and the counts."""
         lines = [f"{'stage':20s} {'count':>6s} {'mean':>9s} {'median':>9s} "
                  f"{'max':>9s}"]
         rows = sorted(self.summary().items())
@@ -133,6 +135,11 @@ class StageTimes:
                               for k, v in st["split"].items())
             lines.append(f"device starved {100 * st['share']:.2f}% of "
                          f"{st['window_s']:.3f} s: {split}")
+        batches = len(self._samples.get("dispatch", ()))
+        if batches:
+            early = self._counts.get("readback_early", 0)
+            lines.append(f"read back early: {early} of {batches} batches "
+                         f"({100 * early / batches:.2f}%)")
         if self._counts:
             lines.append("counts: " + ", ".join(
                 f"{k} {v}" for k, v in sorted(self._counts.items())))

@@ -4,6 +4,7 @@ path (bit for bit) and against the JAX package (to the tolerances of
 tests/test_torch_features.py and tests/test_torch_localize.py).
 """
 
+import threading
 import time
 
 import jax
@@ -221,6 +222,41 @@ def test_streaming_slow_producer_ordering(db):
     assert wall >= 4 * 0.15
 
 
+def test_stream_yields_a_landed_batch_before_the_next_frame(db):
+    """Batch 1, prefetch 1, a producer slower than the step: every frame
+    once, in order, each yielded before the next frame is handed over
+    (its batch landed, and nothing waits for a later frame), and every
+    batch counts as read back early. The producer sleeps 0.15 s a frame
+    and then gives the previous frame up to 5 s to come out, so that it
+    stays slower than the step on a loaded machine."""
+    s = _stream(db, solve_pose=False, prefetch=1)
+    list(s.run(_frames(1)))                  # first calls outside the timing
+    s.times = StageTimes()
+    handed, yielded = [], []
+    out = threading.Event()
+
+    def slow_frames():
+        for i, f in enumerate(_frames(4)):
+            time.sleep(0.15)
+            if i:
+                out.wait(timeout=5.0)
+                out.clear()
+            handed.append(time.perf_counter())
+            yield f
+
+    results = []
+    for r in s.run(slow_frames()):
+        yielded.append(time.perf_counter())
+        out.set()
+        results.append(r)
+    assert [r.frame_id for r in results] == list(range(4))
+    for i in range(3):
+        assert yielded[i] < handed[i + 1]
+    assert (s.times.counts()["readback_early"]
+            == len(s.times.values("dispatch")) == 4)
+    assert "read back early: 4 of 4 batches (100.00%)" in s.times.report()
+
+
 def test_streaming_producer_exception_propagates(db):
     """A failing producer does not deadlock run(): its exception re-raises
     on the consumer side."""
@@ -285,6 +321,7 @@ def test_stage_times_spans_counts_and_starved_split():
     assert ("device starved 37.50% of 8.000 s: frames 6.25%, dispatch "
             "3.12%, device_wait 6.25%, yielded 12.50%, other 9.38%") in rep
     assert "counts: live_keypoints 3, query_slots 8" in rep
+    assert "read back early: 0 of 1 batches (0.00%)" in rep
     assert "wait (span)" in rep and "step (span)" in rep
 
 
@@ -302,7 +339,9 @@ def test_stream_records_each_frames_spans_and_counts(db):
     and one `hold` under its frame_id, its batch as parent, in the order
     arrival <= enqueue <= dispatch start <= step end <= yield; one
     `dispatch` a batch; the counts cover every batch's slots and the
-    yielded frames' keypoints; no device span off the card."""
+    yielded frames' keypoints, and the two full batches, landed when
+    their steps returned, as read back early (the tail batch is the
+    drain's); no device span off the card."""
     s = _stream(db, solve_pose=False, batch=2)
     arrival, yielded = [], []
 
@@ -331,7 +370,8 @@ def test_stream_records_each_frames_spans_and_counts(db):
     assert t.spans("step") == [] and t.starved() is None
     assert t.counts() == {"query_slots": 3 * 2 * CFG.akaze.capacity,
                           "live_keypoints": sum(r.num_keypoints
-                                                for r in results)}
+                                                for r in results),
+                          "readback_early": 2}
     assert len(t.spans("yielded")) == 5 and len(t.spans("frames")) == 6
 
 

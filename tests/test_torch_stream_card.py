@@ -1,6 +1,8 @@
-"""The stream's clock on the card: its step spans by CUDA events, placed
-on the host clock through one anchor a run, with no wait a batch. The
-file imports no JAX: it runs on the card, where the port runs alone."""
+"""The stream on the card: its step spans by CUDA events, placed on the
+host clock through one anchor a run, with no device-wide wait a batch;
+each batch's read-back landing in a pinned slot when its own step ends.
+The file imports no JAX: it runs on the card, where the port runs
+alone."""
 
 import time
 
@@ -57,25 +59,39 @@ def test_stream_clock_on_card(cuda_device, monkeypatch):
     """A warmed run of 4 batches of 2: one `step` span a batch, each
     frame's hold starting at its step's end, the step inside its
     dispatch start and the frame's yield; the device waited on twice a
-    run (the anchor and its closing) whatever the batches, and the
-    closing anchor's drift under 0.5 ms."""
+    run (the anchor and its closing) whatever the batches, each batch
+    waited on only through its own landing event, once, and no blocking
+    copy; the closing anchor's drift under 0.5 ms."""
     s = StreamingLocalizer(_db(), CAM, CFG, solve_pose=False, batch=2,
                            prefetch=4, device=cuda_device)
     list(s.run(_frames(8)))                      # captures the graphs
     s.times = type(s.times)()
-    waits = []
+    waits, landed = [], []
     sync, ev_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+    cpu, finish = torch.Tensor.cpu, StreamingLocalizer._finish_batch
     monkeypatch.setattr(torch.cuda, "synchronize",
                         lambda *a: (waits.append("device"), sync(*a))[1])
     monkeypatch.setattr(torch.cuda.Event, "synchronize",
-                        lambda self: (waits.append("event"),
+                        lambda self: (waits.append(self),
                                       ev_sync(self))[1])
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda self, *a, **k: (waits.append("cpu"),
+                                               cpu(self, *a, **k))[1])
+    monkeypatch.setattr(StreamingLocalizer, "_finish_batch",
+                        lambda self, b, anchor: (landed.append(b.landed),
+                                                 finish(self, b, anchor))[1])
     yielded = {}
     for r in s.run(_frames(8)):
         yielded[r.frame_id] = time.perf_counter()
     monkeypatch.undo()
     t = s.times
-    assert waits == ["device", "device", "event"]
+    assert len(landed) == 4 and None not in landed
+    assert [w for w in waits if not any(w is ev for ev in landed)][:2] \
+        == ["device", "device"]
+    rest = [w for w in waits if not any(w is ev for ev in landed)][2:]
+    assert len(rest) == 1 and isinstance(rest[0], torch.cuda.Event)
+    on_landed = [w for w in waits if any(w is ev for ev in landed)]
+    assert len(on_landed) == len({id(w) for w in on_landed}) == 4
     assert abs(t.counts()["clock_drift_us"]) < 500
     steps = {sp[2]: sp for sp in t.spans("step")}
     dispatch = t.spans("dispatch")
@@ -88,3 +104,51 @@ def test_stream_clock_on_card(cuda_device, monkeypatch):
         assert dispatch[parent][0] - tol <= start < end <= hold_end + tol
         assert hold_end <= y
     assert t.starved()["window_s"] > 0
+
+
+def _slow(frames, period_s, handed=None):
+    for f in frames:
+        time.sleep(period_s)
+        if handed is not None:
+            handed.append(time.perf_counter())
+        yield f
+
+
+@pytest.mark.cuda
+def test_stream_holds_a_landed_frame_briefly_on_card(cuda_device):
+    """Batch 1, prefetch 1, a producer slower than a step: each frame's
+    `hold` (its step's end to its yield) under 2 ms, and each frame
+    yielded before the next one is handed over."""
+    s = StreamingLocalizer(_db(), CAM, CFG, solve_pose=False, batch=1,
+                           prefetch=1, device=cuda_device)
+    list(s.run(_frames(3)))                      # captures the graphs
+    s.times = type(s.times)()
+    handed, yielded = [], []
+    for r in s.run(_slow(_frames(6), 0.05, handed)):
+        yielded.append(time.perf_counter())
+    holds = [e - b for b, e, _, _ in s.times.spans("hold")]
+    assert len(holds) == 6 and max(holds) < 2e-3, holds
+    assert all(y < h for y, h in zip(yielded, handed[1:]))
+    assert s.times.counts()["readback_early"] >= 5
+
+
+@pytest.mark.cuda
+def test_stream_landing_slots_are_not_overwritten_on_card(cuda_device):
+    """Batch 2, prefetch 4 (2 batches in flight, a ring of 3 slots) over
+    8 batches, the results kept to the end: each equals the packed rows
+    of the same frames through `_step` and `.cpu()`, bit for bit."""
+    s = StreamingLocalizer(_db(), CAM, CFG, solve_pose=False, batch=2,
+                           prefetch=4, device=cuda_device)
+    frames = _frames(16)
+    results = list(s.run(frames))
+    assert len(s._landing) == 3
+    assert [r.frame_id for r in results] == list(range(16))
+    for k in range(8):
+        want = s._step(torch.from_numpy(np.stack(frames[2 * k:2 * k + 2]))
+                       .to(cuda_device)).cpu().numpy()
+        for r, row in zip(results[2 * k:2 * k + 2], want):
+            got = np.concatenate([r.homography.reshape(-1),
+                                  [r.homography_ok, r.num_inliers,
+                                   r.num_matches, r.num_keypoints]])
+            np.testing.assert_array_equal(got.astype(np.float32),
+                                          row[:13])
