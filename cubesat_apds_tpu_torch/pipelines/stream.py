@@ -132,6 +132,8 @@ class _Batch:
     t_dispatch: float      # dispatch start (host clock)
     t_returned: float      # `_step` returned: the step's end on the CPU
     step: Optional[tuple]  # on the card: the step's (start, end) events
+    front: Optional[torch.cuda.Event]   # on the card, off the mesh: the
+                                        # front half's end in the step
 
 
 @dataclasses.dataclass
@@ -217,6 +219,9 @@ class StreamingLocalizer:
         # On the card: the pinned slots the batches land in, one more than
         # the batches in flight; made at the first step, kept for every run.
         self._landing: list = []
+        # On the card, off the mesh: the event `_step` recorded when its
+        # front half returned.
+        self._front_end = None
 
     # ---- the device step ------------------------------------------------
 
@@ -229,6 +234,8 @@ class StreamingLocalizer:
             homog, pose, n_match, n_kp = self._serve(frames, self.db)
             return _pack_outputs(homog, n_match, n_kp, pose)
         feats = detect_and_compute_batch(frames, self.config.akaze)
+        if self._copy_stream is not None:
+            self._front_end = _mark(torch.cuda.current_stream(self.device))
         self._slots = feats.descriptors.shape[-2]
         if self._pruned:
             pr = pruned_back_half(feats, tuple(frames.shape[1:]), self.db,
@@ -400,13 +407,15 @@ class StreamingLocalizer:
             out = self._step(batch)
             t_returned = time.perf_counter()
             self.times.stage("dispatch", t0, t_returned)
+            self.times.count("front_pixels", batch.numel())
             step = None if start is None else (start, _mark(step_stream))
             host, landed = self._land(out, step_stream, n_batch)
             in_flight.append(_Batch(
                 id=n_batch, ids=ids, t_enq=t_enq, n_real=n_real, host=host,
                 landed=landed,
                 frames=batch if self._pruned else None, slots=self._slots,
-                t_dispatch=t0, t_returned=t_returned, step=step))
+                t_dispatch=t0, t_returned=t_returned, step=step,
+                front=self._front_end))
             n_batch += 1
             pend = []
             while len(in_flight) > max(self.prefetch // self.batch, 1):
@@ -425,6 +434,9 @@ class StreamingLocalizer:
         self.times.stage("device_wait", t0, time.perf_counter())
         step_end = (b.t_returned if b.step is None else
                     self.times.device_span("step", anchor, *b.step, id=b.id))
+        if b.front is not None:
+            self.times.device_span("front", anchor, b.step[0], b.front,
+                                   id=b.id)
         self.times.count("query_slots", len(b.ids) * b.slots)
         for i in range(b.n_real):
             row = packed[i]

@@ -116,7 +116,8 @@ class StageTimes:
 
     def report(self) -> str:
         """The stage table; then the spans that are no stage, the
-        device's starved share and its split, the stream's batches read
+        device's starved share and its split, the `front` spans' mean and
+        their share of the `step` spans' time, the stream's batches read
         back early (`readback_early`) as a share of its `dispatch`
         samples, and the counts."""
         lines = [f"{'stage':20s} {'count':>6s} {'mean':>9s} {'median':>9s} "
@@ -135,6 +136,12 @@ class StageTimes:
                               for k, v in st["split"].items())
             lines.append(f"device starved {100 * st['share']:.2f}% of "
                          f"{st['window_s']:.3f} s: {split}")
+        front = [e - s for s, e, _, _ in self._spans.get("front", ())]
+        step_s = sum(e - s for s, e, _, _ in self._spans.get("step", ()))
+        if front and step_s > 0:
+            lines.append(f"front half {1e3 * statistics.fmean(front):.2f} ms "
+                         f"a step, {100 * sum(front) / step_s:.2f}% of the "
+                         f"step time")
         batches = len(self._samples.get("dispatch", ()))
         if batches:
             early = self._counts.get("readback_early", 0)

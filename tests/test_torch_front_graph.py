@@ -149,8 +149,11 @@ def test_front_dispatch_matches_jax(imgs, feats):
     detect_and_compute_batch (exact top-K) on the same batch of 2 at
     128²: keypoint counts and descriptors bit-exact, keypoints at the
     same slots within 1e-3 px on the same level (tests/test_torch_
-    features.py's tolerance)."""
+    features.py's tolerance). JAX stays on the CPU: on a card host it
+    would otherwise take three quarters of the card's memory for the rest
+    of the process."""
     jax = pytest.importorskip("jax")
+    jax.config.update("jax_platforms", "cpu")     # as tests/conftest.py
     from cubesat_apds_tpu.core.config import AkazeConfig as JAkazeConfig
     from cubesat_apds_tpu.ops.features import akaze as jakaze
 

@@ -23,18 +23,20 @@ from cubesat_apds_tpu_torch.ops.kernels import match_kernel as tmk
 from cubesat_apds_tpu_torch.ops.kernels import sample_kernel as tsk
 
 
-def _main_path_levels():
-    """(h, w, τ schedule) of each FED level 1–15 of the main path's 512²
-    frame with the default AkazeConfig."""
+def _main_path_levels(size=512):
+    """(h, w, τ schedule) of each FED level 1–15 of a size² frame (the
+    main path's 512², or the full-resolution 2048²) with the default
+    AkazeConfig."""
     cfg = AkazeConfig()
     meta = tss.evolution_metadata(cfg)
-    return [(512 >> meta[i].octave, 512 >> meta[i].octave,
+    return [(size >> meta[i].octave, size >> meta[i].octave,
              tss.fed_tau_by_process_time(meta[i].etime - meta[i - 1].etime,
                                          cfg.fed_tau_max))
             for i in range(1, len(meta))]
 
 
 _LEVELS = _main_path_levels()
+_LEVELS_BY_SIZE = {512: _LEVELS, 2048: _main_path_levels(2048)}
 
 
 @pytest.mark.parametrize("h,w,n", [(512, 512, 3), (256, 256, 7),
@@ -93,14 +95,16 @@ def test_fed_plan_covers_every_shape_the_halo_tiles_did():
 
 @pytest.mark.parametrize("batch", [1, 8, 16])
 @pytest.mark.parametrize("level", range(1, 16))
-def test_fed_plan_counts_the_batch(level, batch):
-    """Kernel A's plan for a batch of B images at each main-path level: a
-    CTA's buffers fit its shared memory and its cells its threads, the
-    tiles cover an image and the strips a tile, the CTAs count every
-    image, and the form follows the plan's rule over the batch's CTAs:
-    plain tiles where they fill the card, else a cluster plan that fits
-    it in one wave."""
-    h, w, taus = _LEVELS[level - 1]
+@pytest.mark.parametrize("size", [512, 2048])
+def test_fed_plan_counts_the_batch(size, level, batch):
+    """Kernel A's plan for a batch of B images at each level of a 512²
+    frame and of a full-resolution 2048² frame: a CTA's buffers fit its
+    shared memory and its cells its threads, the tiles cover an image and
+    the strips a tile, the CTAs count every image, and the form follows
+    the plan's rule over the batch's CTAs: plain tiles where they fill
+    the card, else a cluster plan that fits it in one wave. The 2048²
+    frame's big levels (1024² and up) take plain tiles at every B."""
+    h, w, taus = _LEVELS_BY_SIZE[size][level - 1]
     n = len(taus)
     p = tdiff.fed_plan(h, w, n, batch=batch)
     rows, cols = min(h, p.tile_h + 2 * n), min(w, p.tile_w + 2 * n)
@@ -122,6 +126,8 @@ def test_fed_plan_counts_the_batch(level, batch):
     one = tdiff.fed_plan(h, w, n)
     if one.form == "tiles":              # more images never leave tiles
         assert p.form == "tiles" and p.tile_h == one.tile_h
+    if h >= 1024:
+        assert p.form == "tiles"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -371,8 +371,35 @@ def test_stream_records_each_frames_spans_and_counts(db):
     assert t.counts() == {"query_slots": 3 * 2 * CFG.akaze.capacity,
                           "live_keypoints": sum(r.num_keypoints
                                                 for r in results),
-                          "readback_early": 2}
+                          "readback_early": 2,
+                          "front_pixels": 3 * 2 * 128 * 128}
     assert len(t.spans("yielded")) == 5 and len(t.spans("frames")) == 6
+
+
+def test_stream_counts_front_pixels_and_records_no_front_span_off_the_card(
+        db):
+    """7 frames of 128² at batch 3: `front_pixels` counts B·H·W for each
+    of the three batches, the tail batch's two padded rows included; the
+    `front` span, timed by CUDA events, is never recorded on the CPU, and
+    report() then prints no front share."""
+    s = _stream(db, solve_pose=False, batch=3)
+    assert len(list(s.run(_frames(7)))) == 7
+    t = s.times
+    assert len(t.values("dispatch")) == 3
+    assert t.counts()["front_pixels"] == 3 * 3 * 128 * 128
+    assert t.spans("front") == [] and s._front_end is None
+    assert "front half" not in t.report()
+
+
+def test_stage_times_report_gives_the_front_share():
+    """report() prints the `front` spans' mean and their share of the
+    `step` spans' time (binary fractions, so the numbers are exact)."""
+    t = StageTimes()
+    for i, (s, f, e) in enumerate([(0.0, 0.5, 1.0), (1.0, 1.25, 2.0)]):
+        t.span("step", s, e, id=i)
+        t.span("front", s, f, id=i)
+    assert "front half 375.00 ms a step, 37.50% of the step time" \
+        in t.report()
 
 
 def _packed_of(res):

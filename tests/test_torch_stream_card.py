@@ -1,6 +1,7 @@
-"""The stream on the card: its step spans by CUDA events, placed on the
-host clock through one anchor a run, with no device-wide wait a batch;
-each batch's read-back landing in a pinned slot when its own step ends.
+"""The stream on the card: its step and front spans by CUDA events,
+placed on the host clock through one anchor a run, with no device-wide
+wait a batch; each batch's read-back landing in a pinned slot when its
+own step ends; full-resolution 2048² frames at batch 8.
 The file imports no JAX: it runs on the card, where the port runs
 alone."""
 
@@ -43,9 +44,9 @@ def _frames(n, size=128):
             for i in range(n)]
 
 
-def _db():
-    f = detect_and_compute(torch.from_numpy(_frames(1)[0]).float() / 255.0,
-                           CFG.akaze)
+def _db(size=128):
+    f = detect_and_compute(torch.from_numpy(_frames(1, size)[0]).float()
+                           / 255.0, CFG.akaze)
     m = int(f.keypoints.valid.sum())
     xy = f.keypoints.xy[:m]
     return tloc.DeviceDb(descriptors=f.descriptors[:m], xy=xy,
@@ -152,3 +153,72 @@ def test_stream_landing_slots_are_not_overwritten_on_card(cuda_device):
                                    r.num_matches, r.num_keypoints]])
             np.testing.assert_array_equal(got.astype(np.float32),
                                           row[:13])
+
+
+def _rows(results):
+    return [np.concatenate([r.homography.reshape(-1),
+                            [r.homography_ok, r.num_inliers, r.num_matches,
+                             r.num_keypoints]]).astype(np.float32)
+            for r in results]
+
+
+@pytest.mark.cuda
+def test_front_spans_inside_their_steps_on_card(cuda_device):
+    """A warmed run of 4 batches of 2: one `front` span a `step` span,
+    under the same batch id, starting with its step and ending before
+    it; `front_pixels` counts every batch's B·H·W."""
+    s = StreamingLocalizer(_db(), CAM, CFG, solve_pose=False, batch=2,
+                           prefetch=4, device=cuda_device)
+    list(s.run(_frames(8)))                      # captures the graphs
+    s.times = type(s.times)()
+    assert len(list(s.run(_frames(8)))) == 8
+    t = s.times
+    steps = {sp[2]: sp for sp in t.spans("step")}
+    fronts = {sp[2]: sp for sp in t.spans("front")}
+    assert sorted(steps) == sorted(fronts) == [0, 1, 2, 3]
+    for i, (start, end, _, _) in steps.items():
+        f_start, f_end = fronts[i][:2]
+        assert f_start == start < f_end < end
+    assert t.counts()["front_pixels"] == 4 * 2 * 128 * 128
+    assert "front half" in t.report()
+
+
+def _drop_cached_graphs():
+    """Drop the graphs that earlier tests of this process left in the four
+    process-wide caches (front half, ladder, back half, mesh) and hand
+    the allocator's free blocks back to the device."""
+    from cubesat_apds_tpu_torch.ops.features import akaze, ladder
+    from cubesat_apds_tpu_torch.parallel import mesh
+    from cubesat_apds_tpu_torch.pipelines import step_graph
+
+    akaze.clear_front_graphs()
+    ladder.clear_ladder_graphs()
+    step_graph.clear_step_graphs()
+    mesh.clear_mesh_graphs()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_fullres_batch_of_8_through_the_stream_on_card(cuda_device):
+    """Sixteen 2048² frames at batch 8, prefetch 16: each yielded frame
+    equals the packed row of the same frames through `_step`, bit for
+    bit; one `front` span a batch, over 8·2048² pixels each. The front
+    graph of this key holds ~7 GiB, so the test starts from empty graph
+    caches and empties them again after itself."""
+    _drop_cached_graphs()
+    try:
+        s = StreamingLocalizer(_db(2048), CAM, CFG, solve_pose=False,
+                               batch=8, prefetch=16, device=cuda_device)
+        frames = _frames(16, size=2048)
+        results = list(s.run(frames))
+        assert [r.frame_id for r in results] == list(range(16))
+        for k in range(2):
+            want = s._step(torch.from_numpy(np.stack(
+                frames[8 * k:8 * k + 8])).to(cuda_device)).cpu().numpy()
+            for got, row in zip(_rows(results[8 * k:8 * k + 8]), want):
+                np.testing.assert_array_equal(got, row[:13])
+        assert len(s.times.spans("front")) == \
+            len(s.times.spans("step")) == 2
+        assert s.times.counts()["front_pixels"] == 2 * 8 * 2048 * 2048
+    finally:
+        _drop_cached_graphs()
